@@ -12,7 +12,14 @@ Phases, one output line each:
    k in {18, 20, 22, 24}: 262,144 codewords each (a third with <= t errors,
    a third with t+1, the rest clean), and again at the sizes the main path
    launches it with and at a size that is not a multiple of 256;
-4. K1 (check decode) against its plain twin on 8K superframes, some dirty;
+4. K1 (check decode) against its plain twin, max_abs_err 0 and equal ok
+   flags: 8K superframes (every 8th damaged) as the encoder's strided
+   view and as a contiguous copy, at 2,025 and at the roundtrip's 64;
+   random bytes over all 256 values; a second layout (P1, k = 24, 512
+   words) at 1,001 superframes; P2 at 16,384 words (300 superframes), too
+   large for the kernel's shared-memory stage; then its times at 2,025 and
+   64 superframes (and at 16,384 words) against the memory bound, by CUDA
+   events over calls one by one and as device time from a CUDA graph;
 5. the main path at full size through the port's public stream API: one
    8K frame (7680x4320, 2 px per word: 16,588,800 RAW words, 2,025
    superframes, P2 with luma-priority UEP) encoded and decoded with the
@@ -22,7 +29,8 @@ Phases, one output line each:
    kernels' launch counters must rise; encode, clean and dirty decode ms
    per frame.
 
-Then a JSON line with each kernel's numbers, the ``nvidia-smi`` line, and
+Then a JSON line with each kernel's numbers (K1's ``device_ms`` is its
+CUDA-graph time), the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line is printed.  Tolerance everywhere: zero (the codec
 is integer arithmetic).
@@ -44,7 +52,14 @@ K2_BLOCKS = 262_144
 # tail size leaves the last 256-thread block partly empty.
 K2_PATH_BLOCKS = {18: (128, 40), 20: (6144, 1920), 22: (6144, 1920)}
 K2_TAIL_BLOCKS = 1000
-K1_COMPARE_SF = 256
+K1_SMALL_SF = 64       # the roundtrip's micro-batch: fewer superframes than SMs
+K1_RANDOM_SF = 300
+K1_P1_SF = 1001        # second layout's count, no multiple of the grid
+K1_BIG_WORDS = 16384   # a superframe too large for K1's shared-memory stage
+K1_BIG_SF = 300        # more superframes than the kernel's persistent grid
+# H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, int8 tensor cores
+HBM_BPS = 3.35e12
+INT8_TC_OPS = 1979e12
 
 
 class SmokeFailure(Exception):
@@ -65,6 +80,27 @@ def cuda_ms(torch, fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(torch, fn, reps):
+    """Device time of fn, captured reps times into one CUDA graph and
+    replayed (after one warm-up call and one warm-up replay): the host's
+    per-call work stays out of the reading."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -94,12 +130,14 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Both kernels at once: one nvcc process per source."""
+    from concurrent.futures import ThreadPoolExecutor
     from ternary_image_codec_tpu_torch.runtime import build
     t0 = time.perf_counter()
-    for name in ("check_decode", "rs_correct"):
-        build.load(name)
-    print(f"[2 build] check_decode.cu, rs_correct.cu with nvcc for sm_90a: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(build.load, ("check_decode", "rs_correct")))
+    print(f"[2 build] check_decode.cu, rs_correct.cu with nvcc for sm_90a, "
+          f"in parallel: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _k2_inputs(torch, k, B, rng):
@@ -118,6 +156,13 @@ def _k2_inputs(torch, k, B, rng):
     err = np.where(rank < nerr[:, None], rng.integers(1, 27, (B, 26)), 0)
     recv = gf27.tables()["add"][cw, err]
     return to_pm(data), to_pm(recv), cls
+
+
+def k2_bound_ms(k, B):
+    """K2's least time on B codewords: received digits (3, 26, B) read once,
+    data digits (3, k, B) and ok flags written once, over the HBM rate (the
+    chain's integer work is data-dependent and not counted)."""
+    return (3 * 26 + 3 * k + 1) * B / HBM_BPS * 1e3
 
 
 def phase_k2(torch, dev):
@@ -147,45 +192,150 @@ def phase_k2(torch, dev):
             if B == K2_BLOCKS:
                 ms = cuda_ms(torch, lambda: rs_cuda.rs_correct(recv, k), 20)
                 plain = cuda_ms(torch, lambda: rs.correct_pm_ref(recv, k), 3)
-                res[k] = (ms, plain, float(want_ok.float().mean()))
+                res[k] = (ms, plain, float(want_ok.float().mean()),
+                          k2_bound_ms(k, B))
     print("[3 K2 rs_correct vs plain] equal at " + "; ".join(
         f"k={k}: B {', '.join(map(str, b))}" for k, b in sizes.items())
         + f"; times at {K2_BLOCKS} codewords: " + "; ".join(
-            f"k={k}: kernel {ms:.4f} ms, plain {pl:.4f} ms, ok-rate {okr:.4f}"
-            for k, (ms, pl, okr) in res.items()) + f"; max_abs_err {worst}",
+            f"k={k}: kernel {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.4f} "
+            f"ms, ok-rate {okr:.4f}" for k, (ms, pl, okr, bd) in res.items()) + f"; max_abs_err {worst}",
         flush=True)
     return res, worst
 
 
-def phase_k1(torch, dev, codec, n_sf):
+def k1_bound(layout, n_sf):
+    """(bound ms, "bytes" or "operations", bytes moved) of K1 on n_sf
+    superframes: the wire bodies read once, the RAW planes and ok flags
+    written once, over the HBM rate; the syndrome products that the bands'
+    r rows need (int8 multiply-adds, 2 operations each) over the int8
+    tensor-core rate."""
+    g = layout.geom
+    moved = n_sf * (9 * g.H + 9 * layout.n_out_words + 1)
+    ops = n_sf * g.blocks[0] * sum(2 * 3 * (26 - k) * 78 for k in g.ks)
+    t_bytes, t_ops = moved / HBM_BPS * 1e3, ops / INT8_TC_OPS * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (moved,)
+
+
+def _k1_equal(torch, body, codec, what):
+    """K1 against its plain twin on one input; returns (max_abs_err, ok)."""
     from ternary_image_codec_tpu_torch.ops import dec_cuda
-    g = torch.Generator(device=dev).manual_seed(2)
+    got, got_ok = dec_cuda.check_decode(body, codec.dlayout)
+    want, want_ok = dec_cuda.check_decode_ref(body, codec.tables())
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"K1 {what}: outputs differ from plain")
+    require(torch.equal(got_ok, want_ok), f"K1 {what}: ok flags differ")
+    return int((got.to(torch.int16) - want.to(torch.int16)).abs().max()), got_ok
+
+
+def _k1_words(torch, dev, codec, n_sf, seed):
+    """Encoded wire planes (n_sf, 9, 6 + H) with every 8th superframe
+    damaged in one body cell."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     chunks = torch.randint(0, 27, (n_sf, codec.cfg.superframe_words, 9),
                            generator=g, device=dev, dtype=torch.int8)
     words = codec.encode(chunks, sf_batch=SF_BATCH)
     hit = torch.arange(0, n_sf, 8, device=dev)
-    words[hit, 4, 1000] = (words[hit, 4, 1000] + 1) % 27     # dirty ones
-    body = words[:, :, 6:]
-    T, dl = codec.tables(), codec.dlayout
-    worst = 0
-    for part in (body[:K1_COMPARE_SF], body):
-        got, got_ok = dec_cuda.check_decode(part, dl)
-        want, want_ok = dec_cuda.check_decode_ref(part, T)
-        torch.cuda.synchronize()
-        require(torch.equal(got, want), "K1: outputs differ from plain")
-        require(torch.equal(got_ok, want_ok), "K1: ok flags differ")
-        require(not bool(got_ok[::8].any()) and bool(
-            got_ok[torch.arange(got_ok.numel(), device=dev) % 8 != 0].all()),
-            "K1: wrong superframes flagged")
-        worst = max(worst, int((got.to(torch.int16)
-                                - want.to(torch.int16)).abs().max()))
-    ms = cuda_ms(torch, lambda: dec_cuda.check_decode(body, dl), 10)
+    col = 6 + codec.dlayout.geom.H // 2
+    words[hit, 4, col] = (words[hit, 4, col] + 1) % 27
+    return words
+
+
+def phase_k1(torch, dev, codec, n_sf):
+    """K1 against its plain twin: the encoder's strided bodies and their
+    contiguous copies at n_sf and at the roundtrip's 64, clean and damaged
+    superframes; bodies of random bytes over all 256 values; a second
+    layout (P1, k = 24, 512 words) at a superframe count that is no
+    multiple of the grid; P2 at 16,384 words, too large for shared memory
+    (the kernel reads it in global memory).  Then its times: ``ms`` by CUDA
+    events over calls one by one (the wrapper's host work included),
+    ``device_ms`` from a CUDA graph of back-to-back launches (left out)."""
+    import ternary_image_codec_tpu_torch as port
+    from ternary_image_codec_tpu_torch.ops import dec_cuda
+    checked, worst = [], 0
+
+    def equal(body, cod, what, flagged_every=None):
+        nonlocal worst
+        err, ok = _k1_equal(torch, body, cod, what)
+        if flagged_every:
+            i = torch.arange(ok.numel(), device=dev)
+            require(torch.equal(ok, i % flagged_every != 0),
+                    f"K1 {what}: wrong superframes flagged")
+        worst = max(worst, err)
+        checked.append(what)
+
+    words = _k1_words(torch, dev, codec, n_sf, seed=2)
+    body = words[:, :, 6:]                                 # strided view
+    dl = codec.dlayout
+    plans = {"8K": dec_cuda.plan(body, dl)}
+    require(plans["8K"]["staged"] == 1, f"8K plan not staged: {plans}")
+    equal(body, codec, "8K view", 8)
+    body_c = body.contiguous()
+    equal(body_c, codec, "8K contiguous", 8)
+    equal(body[:K1_SMALL_SF], codec, f"8K view n_sf={K1_SMALL_SF}", 8)
+    equal(body_c[:K1_SMALL_SF], codec, f"8K contiguous n_sf={K1_SMALL_SF}", 8)
+    g = torch.Generator(device=dev).manual_seed(5)
+    noise = torch.randint(-128, 128, (K1_RANDOM_SF, 9, 6 + dl.geom.H),
+                          generator=g, device=dev, dtype=torch.int8)
+    noise.view(-1)[:256] = (torch.arange(256, device=dev) - 128).to(torch.int8)
+    equal(noise[:, :, 6:], codec, "random bytes, view")
+    equal(noise[:, :, 6:].contiguous(), codec, "random bytes, contiguous")
+    del noise
+
+    p1 = port.SuperframeCodec(port.EncoderConfig(
+        profile=port.ProfileID.P1_RS26_24, uep=port.uep_uniform(0),
+        superframe_words=512), device=dev)
+    w1 = _k1_words(torch, dev, p1, K1_P1_SF, seed=3)
+    plans["P1/512"] = dec_cuda.plan(w1[:, :, 6:], p1.dlayout)
+    require(K1_P1_SF % plans["P1/512"]["grid"] != 0, f"P1 n_sf {K1_P1_SF} "
+            f"is a multiple of the grid {plans['P1/512']['grid']}")
+    equal(w1[:, :, 6:], p1, "P1/512 view", 8)
+    equal(w1[:, :, 6:].contiguous(), p1, "P1/512 contiguous", 8)
+    r1 = torch.randint(-128, 128, (K1_P1_SF, 9, 6 + p1.dlayout.geom.H),
+                       generator=g, device=dev, dtype=torch.int8)
+    equal(r1[:, :, 6:], p1, "P1/512 random bytes")
+    del w1, r1, body_c
+
+    big = port.SuperframeCodec(port.EncoderConfig(
+        profile=port.ProfileID.P2_RS26_22, uep=port.uep_luma_priority(),
+        superframe_words=K1_BIG_WORDS), device=dev)
+    wb = _k1_words(torch, dev, big, K1_BIG_SF, seed=4)
+    body_b = wb[:, :, 6:]
+    plans["P2/16384"] = dec_cuda.plan(body_b, big.dlayout)
+    require(plans["P2/16384"]["staged"] == 0
+            and K1_BIG_SF > plans["P2/16384"]["grid"],
+            f"P2/{K1_BIG_WORDS}: expected an unstaged plan with more "
+            f"superframes than blocks, got {plans['P2/16384']}")
+    equal(body_b, big, f"P2/{K1_BIG_WORDS} view", 8)
+    equal(body_b.contiguous(), big, f"P2/{K1_BIG_WORDS} contiguous", 8)
+    bl = big.dlayout
+    ms_big = cuda_ms(torch, lambda: dec_cuda.check_decode(body_b, bl), 10)
+    dev_big = graph_ms(torch, lambda: dec_cuda.check_decode(body_b, bl), 10)
+    bound_big = k1_bound(bl, K1_BIG_SF)[0]
+    del wb, body_b
+
+    T = codec.tables()
+    small = body[:K1_SMALL_SF]
+    ms = cuda_ms(torch, lambda: dec_cuda.check_decode(body, dl), 20)
+    ms_small = cuda_ms(torch, lambda: dec_cuda.check_decode(small, dl), 100)
+    dev_ms = graph_ms(torch, lambda: dec_cuda.check_decode(body, dl), 20)
+    dev_small = graph_ms(torch, lambda: dec_cuda.check_decode(small, dl), 100)
     plain = cuda_ms(torch, lambda: dec_cuda.check_decode_ref(body, T), 3)
-    print(f"[4 K1 check_decode vs plain] bit-equal on {K1_COMPARE_SF} and "
-          f"{n_sf} superframes ({len(hit)} dirty); at {n_sf}: kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms; max_abs_err {worst}",
-          flush=True)
-    return ms, plain, worst
+    bound, bound_by, moved = k1_bound(dl, n_sf)
+    bound_small = k1_bound(dl, K1_SMALL_SF)[0]
+    print(f"[4 K1 check_decode vs plain] bit-equal (max_abs_err {worst}, ok "
+          f"flags equal) on {len(checked)} inputs: {'; '.join(checked)}; "
+          f"plans {plans}; at {n_sf} superframes, one by one (CUDA events): "
+          f"kernel {ms:.4f} ms = {moved / ms / 1e6:.1f} GB/s, "
+          f"{bound / ms:.3f} of the {bound:.4f} ms bound ({bound_by}); "
+          f"device time (CUDA graph) {dev_ms:.4f} ms, {bound / dev_ms:.3f} "
+          f"of the bound; plain {plain:.4f} ms; at {K1_SMALL_SF}: one by one "
+          f"{ms_small:.4f} ms, device {dev_small:.4f} ms, bound "
+          f"{bound_small:.4f} ms; P2/{K1_BIG_WORDS} unstaged at {K1_BIG_SF}: "
+          f"one by one {ms_big:.4f} ms, device {dev_big:.4f} ms, bound "
+          f"{bound_big:.4f} ms", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "max_abs_err": worst}
 
 
 def bench_damage(n_sf, total_w):
@@ -329,19 +479,23 @@ def main():
                              uep=port.uep_luma_priority())
     codec = port.SuperframeCodec(cfg, device=dev)
     n_sf = -(-(W8K * H8K // 2) // cfg.superframe_words)
-    k1_ms, k1_plain, k1_err = phase_k1(torch, dev, codec, n_sf)
+    k1 = phase_k1(torch, dev, codec, n_sf)
     launches = phase_main(torch, dev, cfg)
+    # no single PyTorch call computes either function: library_ms is null
     kernels = [
         {"name": "check_decode", "route": "cuda",
          "source": "ternary_image_codec_tpu_torch/csrc/check_decode.cu",
          "replaces": "ternary_image_codec_tpu/ops/dec_pallas.py:116",
-         "launches": launches["check_decode"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "launches": launches["check_decode"], "max_abs_err": k1["max_abs_err"],
+         "ms": k1["ms"], "device_ms": k1["device_ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "rs_correct", "route": "cuda",
          "source": "ternary_image_codec_tpu_torch/csrc/rs_correct.cu",
          "replaces": "ternary_image_codec_tpu/ops/rs_pallas.py:199",
          "launches": launches["rs_correct"], "max_abs_err": k2_err,
-         "ms": k2[22][0], "plain_ms": k2[22][1]},
+         "ms": k2[22][0], "plain_ms": k2[22][1], "bound_ms": k2[22][3],
+         "bound_by": "bytes", "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -14,29 +14,40 @@ import numpy as np
 import torch
 from torch import nn
 
-from ternary_image_codec_tpu.config import EncoderConfig
+from .config import EncoderConfig
 from .ops import encode as encode_mod
 from .ops import pipeline
 from .ops.pipeline import HEADER_WORDS
 
 
-def _device(device) -> torch.device:
-    dev = torch.device("cpu" if device is None else device)
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: ``None`` is the current CUDA
+    device, and the CPU is used only when the caller passes it.  A CUDA
+    device without an index is the current one, so ``"cuda"`` and
+    ``"cuda:0"`` name the same device (and share ``codec_for``'s codec).
+    Raises when CUDA is asked for (or left as the default) and there is
+    none."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("SuperframeCodec: device 'cuda' requested but "
-                           "torch.cuda.is_available() is False")
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False): the port "
+            "runs on the card by default; pass device='cpu' to run it on "
+            "the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
 class SuperframeCodec(nn.Module):
     """Encoder and decoder of one ``EncoderConfig``'s superframe stream.
 
+    ``device`` defaults to the current CUDA device (see ``resolve_device``).
     ``ref`` holds the reference tables (``pipeline.reference_inputs``
     layout); by default they are derived here."""
 
     def __init__(self, cfg: EncoderConfig, device=None, ref: dict | None = None):
         super().__init__()
-        dev = _device(device)
+        dev = resolve_device(device)
         self.cfg = cfg
         self.layout, self.dlayout = pipeline.stream_layouts(cfg)
         tables = pipeline.derive_tables(
@@ -152,9 +163,14 @@ class SuperframeCodec(nn.Module):
         return torch.cat(outs), ok
 
 
+def codec_for(cfg: EncoderConfig, device=None) -> SuperframeCodec:
+    """The (cached) codec of ``cfg`` on ``device`` (default: the current
+    CUDA device; raises without one)."""
+    return _codec_for(cfg, resolve_device(device))
+
+
 @functools.cache
-def codec_for(cfg: EncoderConfig, device: torch.device) -> SuperframeCodec:
-    """The (cached) codec of ``cfg`` on ``device``."""
+def _codec_for(cfg: EncoderConfig, device: torch.device) -> SuperframeCodec:
     return SuperframeCodec(cfg, device)
 
 
@@ -164,5 +180,6 @@ def tables_from_reference(np_tables: dict, cfg: EncoderConfig,
     ``rs_pm`` {k: rs._matrices_pm(k)} for the config's k values and 18,
     ``header_words`` (layout.header_words), ``off_enc``/``off_dec``
     (np.asarray(pipeline._pm_offsets(H, seed, +1 / -1))) and
-    ``unpack702_bw`` (pipeline._unpack702_bw())."""
+    ``unpack702_bw`` (pipeline._unpack702_bw()).  ``device`` as for
+    ``SuperframeCodec``."""
     return SuperframeCodec(cfg, device, ref=np_tables)

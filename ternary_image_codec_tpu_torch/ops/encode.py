@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ternary_image_codec_tpu.config import NUM_BANDS
+from ..config import NUM_BANDS
 from . import rs
 from .gf27 import mod3
 from .pipeline import k_groups

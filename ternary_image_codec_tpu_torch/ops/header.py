@@ -12,7 +12,7 @@ import functools
 
 import numpy as np
 
-from ternary_image_codec_tpu.config import SubwordMode, SuperframeHeader
+from ..config import SubwordMode, SuperframeHeader
 
 CRC_L = 12
 CRC_SLOTS = (20, 21, 22, 26)

@@ -41,10 +41,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ternary_image_codec_tpu.config import (BeaconPayload, EncoderConfig,
-                                            NUM_BANDS, ProfileID,
-                                            SuperframeHeader,
-                                            encode_beacon_symbol)
+from ..config import (BeaconPayload, EncoderConfig, NUM_BANDS, ProfileID,
+                      SuperframeHeader, encode_beacon_symbol)
 from . import dec_cuda, header as header_mod, rs, scramble
 from .gf27 import mod3, np_sym_to_dig, sym_to_dig
 
@@ -479,25 +477,26 @@ def header_validator(T: dict, rs_mode: str, hdr_all_pages: bool = False):
 
 
 def _codec(cfg: EncoderConfig, device):
+    """The codec of ``cfg`` on ``device``: None is the current CUDA device
+    and raises without one; the CPU only when the caller passes it."""
     from ..codec import codec_for
-    return codec_for(cfg, torch.device(device) if device is not None
-                     else torch.device("cpu"))
+    return codec_for(cfg, device)
 
 
 def encode_stream_superframes(raw_words, cfg: EncoderConfig,
                               sf_batch: int = 64, device=None):
     """RAW words (n, 9) -> profile words (n_sf, total_words, 9), one
     superframe per ``cfg.superframe_words`` RAW words (the tail superframe
-    is zero-padded).  ``device`` defaults to the input tensor's device."""
-    raw = torch.as_tensor(raw_words)
-    dev = raw.device if device is None else torch.device(device)
-    raw = raw.to(dev)
+    is zero-padded).  Runs on ``device``, by default the current CUDA
+    device; the input moves there."""
+    codec = _codec(cfg, device)
+    raw = torch.as_tensor(raw_words).to(codec.device)
     n = int(raw.shape[0])
     sf = cfg.superframe_words
     n_sf = -(-n // sf)
     raw = torch.nn.functional.pad(raw, (0, 0, 0, n_sf * sf - n))
-    words_T = _codec(cfg, dev).encode(raw.reshape(n_sf, sf, NUM_BANDS),
-                                      sf_batch=sf_batch)
+    words_T = codec.encode(raw.reshape(n_sf, sf, NUM_BANDS),
+                           sf_batch=sf_batch)
     return words_T.transpose(1, 2)
 
 
@@ -509,11 +508,10 @@ def decode_stream_superframes(words, cfg: EncoderConfig, n_raw: int,
     ``ok`` is a 0-d bool tensor on the device.  ``strategy`` is one of
     check, paged, auto, fused (see the module docstring).  ``repair_cap``
     is the fused strategy's window (default ``sf_batch``); a value <= 0
-    raises.  (The JAX package treats 0 as unset; the port rejects it.)"""
-    w = torch.as_tensor(words)
-    dev = w.device if device is None else torch.device(device)
-    words_T = w.to(dev).transpose(1, 2)
-    codec = _codec(cfg, dev)
+    raises.  (The JAX package treats 0 as unset; the port rejects it.)
+    ``device`` as for ``encode_stream_superframes``."""
+    codec = _codec(cfg, device)
+    words_T = torch.as_tensor(words).to(codec.device).transpose(1, 2)
     raw_T, ok = codec.decode(words_T, strategy=strategy,
                              repair_cap=repair_cap, sf_batch=sf_batch)
     raw = raw_T[:, :, :cfg.superframe_words].transpose(1, 2) \
@@ -529,8 +527,8 @@ def roundtrip_stream(chunks, cfg: EncoderConfig, sf_batch: int = 64,
 
     ``fold`` reduces each micro-batch of decoded planes (b, 9, n_out) to a
     per-superframe result (b, ...) inside the pass, so the full planes are
-    never kept; the call then returns (folded (n_sf, ...), ok)."""
-    c = torch.as_tensor(chunks)
-    dev = c.device if device is None else torch.device(device)
-    return _codec(cfg, dev).roundtrip(c.to(dev), rs_mode=rs_mode,
-                                      fold=fold, sf_batch=sf_batch)
+    never kept; the call then returns (folded (n_sf, ...), ok).
+    ``device`` as for ``encode_stream_superframes``."""
+    codec = _codec(cfg, device)
+    return codec.roundtrip(torch.as_tensor(chunks).to(codec.device),
+                           rs_mode=rs_mode, fold=fold, sf_batch=sf_batch)

@@ -11,9 +11,9 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from ternary_image_codec_tpu.config import (EncoderConfig, ProfileID,
-                                            uep_luma_priority)
+from ternary_image_codec_tpu import config as jconfig
 from ternary_image_codec_tpu.ops import pipeline as jpipe
+from ternary_image_codec_tpu_torch import config as tconfig
 from ternary_image_codec_tpu_torch import (SuperframeCodec,
                                            decode_stream_superframes,
                                            encode_stream_superframes,
@@ -22,10 +22,21 @@ from ternary_image_codec_tpu_torch.ops import gf27
 
 SFB = 8          # sf_batch shared with the reference's cached programs
 N_SF = 6
-CFG = EncoderConfig(profile=ProfileID.P2_RS26_22, uep=uep_luma_priority(),
-                    superframe_words=256)
-CFG_P1 = EncoderConfig(profile=ProfileID.P1_RS26_24, uep=uep_luma_priority(),
-                       superframe_words=512)
+CPU = "cpu"      # the port defaults to the card; the CPU must be asked for
+
+
+def _cfgs(profile, sfw):
+    """(JAX config, port config), each from its own package's config
+    module with the same arguments."""
+    return tuple(m.EncoderConfig(profile=m.ProfileID[profile],
+                                 uep=m.uep_luma_priority(),
+                                 superframe_words=sfw)
+                 for m in (jconfig, tconfig))
+
+
+JCFG, CFG = _cfgs("P2_RS26_22", 256)
+JCFG_P1, CFG_P1 = _cfgs("P1_RS26_24", 512)
+JAX_OF = {CFG: JCFG, CFG_P1: JCFG_P1}
 HW = jpipe.HEADER_WORDS
 
 
@@ -38,8 +49,8 @@ def _raw(cfg, n_sf=N_SF, seed=0):
 
 def _words(cfg, raw):
     """The reference's wire words (n_sf, total, 9) for raw."""
-    return np.array(jpipe.encode_stream_superframes(jnp.asarray(raw), cfg,
-                                                    sf_batch=SFB))
+    return np.array(jpipe.encode_stream_superframes(jnp.asarray(raw),
+                                                    JAX_OF[cfg], sf_batch=SFB))
 
 
 def _body_errors(w, sf, seed, n=8):
@@ -65,11 +76,11 @@ def _overcap(w, sf):
 
 def _decode_both(words, cfg, n_raw, strategy, repair_cap=None):
     want, want_ok = jpipe.decode_stream_superframes(
-        jnp.asarray(words), cfg, n_raw, sf_batch=SFB, strategy=strategy,
-        repair_cap=repair_cap)
+        jnp.asarray(words), JAX_OF[cfg], n_raw, sf_batch=SFB,
+        strategy=strategy, repair_cap=repair_cap)
     got, got_ok = decode_stream_superframes(
         torch.as_tensor(words), cfg, n_raw, sf_batch=SFB, strategy=strategy,
-        repair_cap=repair_cap)
+        repair_cap=repair_cap, device=CPU)
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert bool(got_ok) == bool(want_ok)
     return got.numpy(), bool(got_ok)
@@ -79,8 +90,9 @@ def _decode_both(words, cfg, n_raw, strategy, repair_cap=None):
 def test_encode_matches_reference(cfg):
     raw = _raw(cfg, n_sf=3)[:-100]         # tail superframe zero-padded
     want = np.asarray(jpipe.encode_stream_superframes(
-        jnp.asarray(raw), cfg, sf_batch=SFB))
-    got = encode_stream_superframes(torch.as_tensor(raw), cfg, sf_batch=SFB)
+        jnp.asarray(raw), JAX_OF[cfg], sf_batch=SFB))
+    got = encode_stream_superframes(torch.as_tensor(raw), cfg, sf_batch=SFB,
+                                    device=CPU)
     assert got.dtype == torch.int8
     assert np.array_equal(got.numpy(), want)
 
@@ -133,11 +145,12 @@ def test_per_superframe_flags_under_overcap():
     _body_errors(w, 1, seed=21)
     _overcap(w, 4)
     words_T = np.ascontiguousarray(w.transpose(0, 2, 1))
-    _l, _d, _e, dec = jpipe._stream_fns(CFG, SFB, rs_mode="paged",
+    _l, _d, _e, dec = jpipe._stream_fns(JCFG, SFB, rs_mode="paged",
                                         ok_per_sf=True, hdr_all_pages=True)
     want, want_ok = dec(jnp.asarray(words_T))
     want, want_ok = np.asarray(want), np.asarray(want_ok)
-    got, got_ok = SuperframeCodec(CFG).paged(torch.as_tensor(words_T), SFB)
+    got, got_ok = SuperframeCodec(CFG, device=CPU).paged(
+        torch.as_tensor(words_T), SFB)
     assert np.array_equal(got_ok.numpy(), want_ok)
     assert not want_ok[4] and want_ok[[0, 1, 2, 3, 5]].all()
     assert np.array_equal(got.numpy()[want_ok], want[want_ok])
@@ -167,10 +180,10 @@ def test_repair_cap_nonpositive_raises(cap):
     # repair_cap=0 as unset (`repair_cap if repair_cap else ...`) and falls
     # back to the T3_REPAIR_SFB default; the port rejects any cap <= 0.
     raw = _raw(CFG, n_sf=2)
-    words = encode_stream_superframes(torch.as_tensor(raw), CFG)
+    words = encode_stream_superframes(torch.as_tensor(raw), CFG, device=CPU)
     with pytest.raises(ValueError):
         decode_stream_superframes(words, CFG, len(raw), strategy="fused",
-                                  repair_cap=cap)
+                                  repair_cap=cap, device=CPU)
 
 
 @pytest.mark.cuda
@@ -187,7 +200,7 @@ def test_card_decodes_contiguous_words(strategy):
     kw = dict(sf_batch=SFB, strategy=strategy,
               repair_cap=4 if strategy == "fused" else None)
     want, want_ok = decode_stream_superframes(torch.as_tensor(w), CFG,
-                                              len(raw), **kw)
+                                              len(raw), device=CPU, **kw)
     got, got_ok = decode_stream_superframes(
         torch.as_tensor(w, device="cuda"), CFG, len(raw), **kw)
     assert torch.equal(got.cpu(), want) and bool(got_ok) == bool(want_ok)
@@ -196,15 +209,16 @@ def test_card_decodes_contiguous_words(strategy):
 def test_roundtrip_matches_reference():
     raw = _raw(CFG, seed=5)
     chunks = raw.reshape(N_SF, CFG.superframe_words, 9)
-    rt = jpipe.roundtrip_stream_fn(CFG, SFB)
+    rt = jpipe.roundtrip_stream_fn(JCFG, SFB)
     want, want_ok = rt(jnp.asarray(chunks))
-    got, got_ok = roundtrip_stream(torch.as_tensor(chunks), CFG, sf_batch=SFB)
+    got, got_ok = roundtrip_stream(torch.as_tensor(chunks), CFG, sf_batch=SFB,
+                                   device=CPU)
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert np.array_equal(got_ok.numpy(), np.asarray(want_ok))
     assert got_ok.all()
     # fold: a per-superframe checksum instead of the planes
     sums, ok = roundtrip_stream(
-        torch.as_tensor(chunks), CFG, sf_batch=4,
+        torch.as_tensor(chunks), CFG, sf_batch=4, device=CPU,
         fold=lambda x: x.to(torch.int64).sum(dim=(1, 2)))
     assert np.array_equal(sums.numpy(),
                           np.asarray(want).astype(np.int64).sum(axis=(1, 2)))

@@ -9,26 +9,49 @@ import numpy as np
 import pytest
 import torch
 
-from ternary_image_codec_tpu.config import (EncoderConfig, ProfileID,
-                                            ScramblerSeed, SuperframeHeader,
-                                            uep_luma_priority)
+from ternary_image_codec_tpu import config as jconfig
 from ternary_image_codec_tpu.ops import gf27 as jgf27
 from ternary_image_codec_tpu.ops import header as jheader
 from ternary_image_codec_tpu.ops import pipeline as jpipe
 from ternary_image_codec_tpu.ops import rs as jrs
 from ternary_image_codec_tpu.ops import scramble as jscramble
+from ternary_image_codec_tpu_torch import config as tconfig
 from ternary_image_codec_tpu_torch import SuperframeCodec, tables_from_reference
 from ternary_image_codec_tpu_torch.ops import gf27, header, rs, scramble
 from ternary_image_codec_tpu_torch.ops import pipeline as tpipe
 
+CPU = "cpu"      # the port defaults to the card; the CPU must be asked for
+
+
+def _cfgs(profile, sfw, seed=(1, 1, 1)):
+    """(JAX config, port config), each from its own package's config
+    module with the same arguments."""
+    return tuple(m.EncoderConfig(profile=m.ProfileID[profile],
+                                 uep=m.uep_luma_priority(),
+                                 superframe_words=sfw,
+                                 seed=m.ScramblerSeed(*seed))
+                 for m in (jconfig, tconfig))
+
+
+def _headers(m):
+    """Two SuperframeHeaders of config module m: the default and one with
+    every field the stream sets moved off its default."""
+    return (m.SuperframeHeader(),
+            m.SuperframeHeader(uep=m.uep_luma_priority(), frame_seq=1234,
+                               seed=m.ScramblerSeed(2, 0, 1)))
+
+
+def _jax_stream_header(jcfg):
+    """The reference's stream header of jcfg (as its _stream_fns builds it)."""
+    return jconfig.SuperframeHeader(
+        profile=jcfg.profile, uep=jcfg.uep, tile=jcfg.tile, seed=jcfg.seed,
+        beacon=jcfg.beacon, subword=jcfg.subword, centered=jcfg.centered,
+        coset=jcfg.coset)
+
+
 CONFIGS = {
-    "p2_luma_256": EncoderConfig(profile=ProfileID.P2_RS26_22,
-                                 uep=uep_luma_priority(),
-                                 superframe_words=256),
-    "p1_luma_512_seed210": EncoderConfig(profile=ProfileID.P1_RS26_24,
-                                         uep=uep_luma_priority(),
-                                         superframe_words=512,
-                                         seed=ScramblerSeed(2, 1, 0)),
+    "p2_luma_256": _cfgs("P2_RS26_22", 256),
+    "p1_luma_512_seed210": _cfgs("P1_RS26_24", 512, seed=(2, 1, 0)),
 }
 
 
@@ -77,36 +100,34 @@ def test_scramble_offsets(seed):
                           scramble.offsets(40, a, b, s0).numpy())
     for sign in (1, -1):
         assert np.array_equal(
-            np.asarray(jpipe._pm_offsets(30, ScramblerSeed(a, b, s0),
+            np.asarray(jpipe._pm_offsets(30, jconfig.ScramblerSeed(a, b, s0),
                                          float(sign))),
-            scramble.pm_offsets(30, ScramblerSeed(a, b, s0), sign))
+            scramble.pm_offsets(30, tconfig.ScramblerSeed(a, b, s0), sign))
 
 
 def test_header_pack():
-    for h in (SuperframeHeader(), SuperframeHeader(
-            uep=uep_luma_priority(), frame_seq=1234,
-            seed=ScramblerSeed(2, 0, 1))):
-        assert np.array_equal(jheader.pack(h), header.pack(h))
+    for jh, th in zip(_headers(jconfig), _headers(tconfig)):
+        assert np.array_equal(jheader.pack(jh), header.pack(th))
     assert np.array_equal(jheader.crc12_matrix(), header.crc12_matrix())
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_layouts(name):
-    cfg = CONFIGS[name]
-    jl = jpipe.build_encode_layout(cfg, cfg.superframe_words)
+    jcfg, cfg = CONFIGS[name]
+    jl = jpipe.build_encode_layout(jcfg, jcfg.superframe_words)
     tl, tdl = tpipe.stream_layouts(cfg)
     for field in ("n_raw_words", "n_sy", "total_words"):
         assert getattr(jl, field) == getattr(tl, field), field
     assert jl.geom.__dict__ == tl.geom.__dict__
     assert np.array_equal(jl.header_words, tl.header_words)
-    jdl = jpipe.build_decode_layout(tpipe.stream_header(cfg), tl.geom.H)
+    jdl = jpipe.build_decode_layout(_jax_stream_header(jcfg), tl.geom.H)
     assert (jdl.L_out, jdl.n_out_words) == (tdl.L_out, tdl.n_out_words)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_reference_inputs_match_jax(name):
-    cfg = CONFIGS[name]
-    ref, got = _jax_reference_tables(cfg), tpipe.reference_inputs(cfg)
+    jcfg, cfg = CONFIGS[name]
+    ref, got = _jax_reference_tables(jcfg), tpipe.reference_inputs(cfg)
     assert sorted(ref["rs_pm"]) == sorted(got["rs_pm"])
     for k in ref["rs_pm"]:
         for key in rs.PM_KEYS:
@@ -117,9 +138,10 @@ def test_reference_inputs_match_jax(name):
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_codec_from_reference_tables(name):
-    cfg = CONFIGS[name]
-    own = SuperframeCodec(cfg).tables()
-    carried = tables_from_reference(_jax_reference_tables(cfg), cfg).tables()
+    jcfg, cfg = CONFIGS[name]
+    own = SuperframeCodec(cfg, device=CPU).tables()
+    carried = tables_from_reference(_jax_reference_tables(jcfg), cfg,
+                                    device=CPU).tables()
     assert sorted(own) == sorted(carried)
     for key in own:
         assert own[key].dtype == carried[key].dtype, key
