@@ -8,10 +8,14 @@ Phases, one output line each:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
 2. build: both CUDA kernels from ``ternary_image_codec_tpu_torch/csrc``;
-3. K2 (RS correction chain) against its plain torch twin on the card, for
-   k in {18, 20, 22, 24}: 262,144 codewords each (a third with <= t errors,
-   a third with t+1, the rest clean), and again at the sizes the main path
-   launches it with and at a size that is not a multiple of 256;
+3. K2 (RS correction chain) against its plain torch twin on the card, bit
+   for bit on every block, for k in {18, 20, 22, 24}: 262,144 codewords
+   each (a third with <= t errors, a third with t+1, the rest clean), again
+   at the sizes the main path launches it with and at a size that is not a
+   multiple of a block, and on the fused window's own traffic (k=22, 6,144
+   codewords, most warps clean, one warp dirty in its last lane only); its
+   times by CUDA events over calls one by one (``ms``) and from a CUDA
+   graph (``device_ms``) at 262,144, at the path sizes and on the window;
 4. K1 (check decode) against its plain twin, max_abs_err 0 and equal ok
    flags: 8K superframes (every 8th damaged) as the encoder's strided
    view and as a contiguous copy, at 2,025 and at the roundtrip's 64;
@@ -29,8 +33,8 @@ Phases, one output line each:
    kernels' launch counters must rise; encode, clean and dirty decode ms
    per frame.
 
-Then a JSON line with each kernel's numbers (K1's ``device_ms`` is its
-CUDA-graph time), the ``nvidia-smi`` line, and
+Then a JSON line with each kernel's numbers (``device_ms`` is the
+CUDA-graph time; K2's ``at_path_sizes`` holds its path-size times), the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 nonzero before that line is printed.  Tolerance everywhere: zero (the codec
 is integer arithmetic).
@@ -52,6 +56,10 @@ K2_BLOCKS = 262_144
 # tail size leaves the last 256-thread block partly empty.
 K2_PATH_BLOCKS = {18: (128, 40), 20: (6144, 1920), 22: (6144, 1920)}
 K2_TAIL_BLOCKS = 1000
+K2_PAGE = 16           # blocks per page of the paged corrector
+K2_WINDOW_PAGES = 6    # page slots per superframe in the k=22 window
+K2_WINDOW_DIRTY = 20   # damaged superframes of the dirty frame
+K2_LAST_LANE_SLOT = 40  # a clean slot whose first warp gets one dirty lane
 K1_SMALL_SF = 64       # the roundtrip's micro-batch: fewer superframes than SMs
 K1_RANDOM_SF = 300
 K1_P1_SF = 1001        # second layout's count, no multiple of the grid
@@ -140,22 +148,46 @@ def phase_build():
           f"in parallel: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def _k2_inputs(torch, k, B, rng):
-    """(data digits (3, k, B), received digits (3, 26, B), class (B,)):
-    class 0 carries 1..t errors, class 1 carries t+1, class 2 none."""
+def _k2_codewords(torch, k, nerr, rng):
+    """(data digits (3, k, B), received digits (3, 26, B)) of B = len(nerr)
+    random codewords; codeword b carries nerr[b] symbol errors."""
     from ternary_image_codec_tpu_torch.ops import gf27, rs
-    t = (26 - k) // 2
+    B = len(nerr)
     data = rng.integers(0, 27, size=(B, k))
-    to_pm = lambda s: gf27.np_sym_to_dig(s).transpose(2, 1, 0).astype(np.int8)
+    to_pm = lambda s: np.ascontiguousarray(
+        gf27.np_sym_to_dig(s).transpose(2, 1, 0)).astype(np.int8)
     cw_pm = rs.encode_pm(torch.as_tensor(to_pm(data)), k).numpy()
     cw = gf27.np_dig_to_sym(cw_pm.transpose(2, 1, 0))
-    cls = np.arange(B) % 3
-    nerr = np.where(cls == 0, 1 + (np.arange(B) // 3) % t,
-                    np.where(cls == 1, t + 1, 0))
     rank = np.argsort(rng.random((B, 26)), axis=1).argsort(axis=1)
     err = np.where(rank < nerr[:, None], rng.integers(1, 27, (B, 26)), 0)
     recv = gf27.tables()["add"][cw, err]
-    return to_pm(data), to_pm(recv), cls
+    return to_pm(data), to_pm(recv)
+
+
+def _k2_spread(k, B):
+    """Errors per codeword, spread over every warp: b % 3 == 0 carries
+    1..t errors, b % 3 == 1 carries t + 1, the rest none."""
+    t = (26 - k) // 2
+    b = np.arange(B)
+    return np.where(b % 3 == 0, 1 + (b // 3) % t, np.where(b % 3 == 1, t + 1, 0))
+
+
+def _k2_window(k):
+    """Errors per codeword of the fused repair window as ``paged_body``
+    hands it to K2 for one k-group: REPAIR_CAP superframe slots x 6 page
+    slots x 16 blocks.  The first 20 slots (the damaged superframes) carry
+    one damaged codeword (1..t errors) in each of their first 5 pages, the
+    other slots are clean, but for the last lane of the first warp of slot
+    K2_LAST_LANE_SLOT."""
+    t = (26 - k) // 2
+    rng = np.random.default_rng(k)
+    nerr = np.zeros((REPAIR_CAP, K2_WINDOW_PAGES, K2_PAGE), dtype=np.int64)
+    for s in range(K2_WINDOW_DIRTY):
+        for p in range(K2_WINDOW_PAGES - 1):
+            nerr[s, p, rng.integers(K2_PAGE)] = 1 + (s + p) % t
+    nerr = nerr.reshape(-1)
+    nerr[K2_LAST_LANE_SLOT * K2_WINDOW_PAGES * K2_PAGE + 31] = 1
+    return nerr
 
 
 def k2_bound_ms(k, B):
@@ -166,41 +198,62 @@ def k2_bound_ms(k, B):
 
 
 def phase_k2(torch, dev):
+    """K2 against its plain twin, bit-equal on every block (failed ones
+    included) with equal ok flags, and every block with <= t errors back
+    to its data; then its times: ``ms`` by CUDA events over calls one by
+    one (the wrapper's host work included), ``device_ms`` from a CUDA graph
+    of back-to-back launches (left out)."""
     from ternary_image_codec_tpu_torch.ops import rs, rs_cuda
     rng = np.random.default_rng(3)
-    res, worst, sizes = {}, 0, {}
+    worst, held, times = 0, [], {}
+
+    def hold(k, nerr, what):
+        nonlocal worst
+        data_np, recv_np = _k2_codewords(torch, k, nerr, rng)
+        data = torch.as_tensor(data_np, device=dev)
+        recv = torch.as_tensor(recv_np, device=dev)
+        got, got_ok = rs_cuda.rs_correct(recv, k)
+        want, want_ok = rs.correct_pm_ref(recv, k)
+        torch.cuda.synchronize()
+        what = f"k={k} {what}"
+        require(torch.equal(got_ok, want_ok), f"K2 {what}: ok flags differ")
+        require(torch.equal(got, want), f"K2 {what}: data differs")
+        within = torch.as_tensor(nerr <= (26 - k) // 2, device=dev)
+        require(bool(got_ok[within].all()), f"K2 {what}: a <= t block failed")
+        require(torch.equal(got[:, :, within], data[:, :, within]),
+                f"K2 {what}: a <= t block did not decode to its data")
+        worst = max(worst, int((got.to(torch.int16)
+                                - want.to(torch.int16)).abs().max()))
+        held.append(what)
+        return recv, float(want_ok.float().mean())
+
+    def timed(key, recv, k, reps, plain=False):
+        run = lambda: rs_cuda.rs_correct(recv, k)
+        times[key] = {"ms": cuda_ms(torch, run, reps),
+                      "device_ms": graph_ms(torch, run, reps),
+                      "bound_ms": k2_bound_ms(k, recv.shape[-1])}
+        if plain:
+            times[key]["plain_ms"] = cuda_ms(
+                torch, lambda: rs.correct_pm_ref(recv, k), 3)
+
     for k in (18, 20, 22, 24):
-        sizes[k] = (K2_BLOCKS,) + K2_PATH_BLOCKS.get(k, ()) + (K2_TAIL_BLOCKS,)
-        for B in sizes[k]:
-            data_np, recv_np, cls = _k2_inputs(torch, k, B, rng)
-            data = torch.as_tensor(data_np, device=dev)
-            recv = torch.as_tensor(np.ascontiguousarray(recv_np), device=dev)
-            got, got_ok = rs_cuda.rs_correct(recv, k)
-            want, want_ok = rs.correct_pm_ref(recv, k)
-            torch.cuda.synchronize()
-            what = f"K2 k={k} B={B}"
-            require(torch.equal(got_ok, want_ok), f"{what}: ok flags differ")
-            require(torch.equal(got[:, :, want_ok], want[:, :, want_ok]),
-                    f"{what}: data differs where ok")
-            within = torch.as_tensor(cls != 1, device=dev)
-            require(bool(got_ok[within].all()), f"{what}: a <= t block failed")
-            require(torch.equal(got[:, :, within], data[:, :, within]),
-                    f"{what}: a <= t block did not decode to its data")
-            err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
-            err = max(err, int((got_ok != want_ok).sum()))
-            worst = max(worst, err)
+        for B in (K2_BLOCKS,) + K2_PATH_BLOCKS.get(k, ()) + (K2_TAIL_BLOCKS,):
+            recv, ok_rate = hold(k, _k2_spread(k, B), f"B={B}")
             if B == K2_BLOCKS:
-                ms = cuda_ms(torch, lambda: rs_cuda.rs_correct(recv, k), 20)
-                plain = cuda_ms(torch, lambda: rs.correct_pm_ref(recv, k), 3)
-                res[k] = (ms, plain, float(want_ok.float().mean()),
-                          k2_bound_ms(k, B))
-    print("[3 K2 rs_correct vs plain] equal at " + "; ".join(
-        f"k={k}: B {', '.join(map(str, b))}" for k, b in sizes.items())
-        + f"; times at {K2_BLOCKS} codewords: " + "; ".join(
-            f"k={k}: kernel {ms:.4f} ms, plain {pl:.4f} ms, bound {bd:.4f} "
-            f"ms, ok-rate {okr:.4f}" for k, (ms, pl, okr, bd) in res.items()) + f"; max_abs_err {worst}",
-        flush=True)
-    return res, worst
+                timed(f"k={k} B={B}", recv, k, 20, plain=True)
+                times[f"k={k} B={B}"]["ok_rate"] = ok_rate
+            elif B != K2_TAIL_BLOCKS:
+                timed(f"k={k} B={B}", recv, k, 100)
+    nerr = _k2_window(22)
+    recv, _ = hold(22, nerr, f"fused window B={len(nerr)}")
+    timed(f"k=22 window B={len(nerr)}", recv, 22, 100)
+    print(f"[3 K2 rs_correct vs plain] bit-equal (max_abs_err {worst}, ok "
+          f"flags equal) on {len(held)} inputs: {'; '.join(held)}; times "
+          "(ms by events one by one, device ms from a CUDA graph, bound ms): "
+          + "; ".join(f"{key}: " + ", ".join(f"{n} {v:.4f}" for n, v in
+                                             t.items())
+                      for key, t in times.items()), flush=True)
+    return times, worst
 
 
 def k1_bound(layout, n_sf):
@@ -481,6 +534,7 @@ def main():
     n_sf = -(-(W8K * H8K // 2) // cfg.superframe_words)
     k1 = phase_k1(torch, dev, codec, n_sf)
     launches = phase_main(torch, dev, cfg)
+    k2_big = k2[f"k=22 B={K2_BLOCKS}"]
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         {"name": "check_decode", "route": "cuda",
@@ -494,8 +548,11 @@ def main():
          "source": "ternary_image_codec_tpu_torch/csrc/rs_correct.cu",
          "replaces": "ternary_image_codec_tpu/ops/rs_pallas.py:199",
          "launches": launches["rs_correct"], "max_abs_err": k2_err,
-         "ms": k2[22][0], "plain_ms": k2[22][1], "bound_ms": k2[22][3],
-         "bound_by": "bytes", "library_ms": None},
+         "ms": k2_big["ms"], "device_ms": k2_big["device_ms"],
+         "plain_ms": k2_big["plain_ms"], "bound_ms": k2_big["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "at_path_sizes": {key: t for key, t in k2.items()
+                           if f"B={K2_BLOCKS}" not in key}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
