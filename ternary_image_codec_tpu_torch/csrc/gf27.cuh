@@ -2,8 +2,9 @@
 //
 // Symbols 0..26 are digit triples a0 + 3 a1 + 9 a2 over GF(3), reduced mod
 // p(x) = x^3 + 2x + 1; the primitive element is alpha = x (symbol 3).
-// Each block builds its product, sum, inverse and alpha-power tables in
-// shared memory once (1.5 KB), so the hot loops are single table reads.
+// The product, sum, negation, inverse and alpha-power tables (1.5 KB) are
+// read from shared memory, so the hot loops are single table reads; K2
+// copies them in from the image ops/rs_cuda.py generates (rs_tables.cuh).
 #pragma once
 
 #include <cstdint>
@@ -13,55 +14,15 @@ namespace t3 {
 
 constexpr int N = 26;          // RS codeword length
 
-struct GfTables {
+struct __align__(16) GfTables {
   uint8_t mul[27 * 27];
   uint8_t add[27 * 27];
   uint8_t neg[27];
   uint8_t inv[27];
   uint8_t exp[26];             // alpha^e, e = 0..25
+  uint8_t pad[14];             // to 1,552 bytes, 97 16-byte words
 };
-
-__device__ __forceinline__ int gf_mul_slow(int a, int b) {
-  const int a0 = a % 3, a1 = (a / 3) % 3, a2 = a / 9;
-  const int b0 = b % 3, b1 = (b / 3) % 3, b2 = b / 9;
-  const int r0 = a0 * b0;
-  const int r1 = a0 * b1 + a1 * b0;
-  const int r2 = a0 * b2 + a1 * b1 + a2 * b0;
-  const int r3 = a1 * b2 + a2 * b1;
-  const int r4 = a2 * b2;
-  // x^3 = x + 2, x^4 = x^2 + 2x
-  return (r0 + 2 * r3) % 3 + 3 * ((r1 + r3 + 2 * r4) % 3) + 9 * ((r2 + r4) % 3);
-}
-
-__device__ __forceinline__ int gf_add_slow(int a, int b) {
-  return (a % 3 + b % 3) % 3 + 3 * (((a / 3) % 3 + (b / 3) % 3) % 3) +
-         9 * ((a / 9 + b / 9) % 3);
-}
-
-__device__ __forceinline__ int gf_neg_slow(int a) {
-  return (3 - a % 3) % 3 + 3 * ((3 - (a / 3) % 3) % 3) + 9 * ((3 - a / 9) % 3);
-}
-
-// Fill the tables; every thread of the block must call it (it syncs).
-__device__ void gf_tables_init(GfTables& t) {
-  for (int e = threadIdx.x; e < 27 * 27; e += blockDim.x) {
-    t.mul[e] = (uint8_t)gf_mul_slow(e / 27, e % 27);
-    t.add[e] = (uint8_t)gf_add_slow(e / 27, e % 27);
-  }
-  for (int a = threadIdx.x; a < 27; a += blockDim.x) {
-    t.neg[a] = (uint8_t)gf_neg_slow(a);
-    // a^-1 = a^25 (25 = 16 + 8 + 1); 0 maps to 0
-    const int a2 = gf_mul_slow(a, a), a4 = gf_mul_slow(a2, a2);
-    const int a8 = gf_mul_slow(a4, a4), a16 = gf_mul_slow(a8, a8);
-    t.inv[a] = (uint8_t)gf_mul_slow(gf_mul_slow(a16, a8), a);
-  }
-  for (int e = threadIdx.x; e < 26; e += blockDim.x) {
-    int x = 1;
-    for (int j = 0; j < e; ++j) x = gf_mul_slow(x, 3);
-    t.exp[e] = (uint8_t)x;
-  }
-  __syncthreads();
-}
+static_assert(sizeof(GfTables) == 1552, "GfTables is the 1,552-byte image");
 
 __device__ __forceinline__ int gmul(const GfTables& t, int a, int b) {
   return t.mul[a * 27 + b];

@@ -23,6 +23,12 @@
 // the reference exactly.  Making it fast (several blocks per thread,
 // log-domain products, fewer table reads) is later work.
 #include "gf27.cuh"
+#include "rs_tables.cuh"
+
+// threads per block (a build may override it, as k2_sweep.py does)
+#ifndef T3_RS_THREADS
+#define T3_RS_THREADS 64
+#endif
 
 namespace {
 
@@ -144,11 +150,15 @@ __device__ void rs_block(const GfTables& t, const int8_t* __restrict__ recv,
 }
 
 template <int R>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(T3_RS_THREADS)
 rs_correct_kernel(const int8_t* __restrict__ recv, int8_t* __restrict__ out,
                   bool* __restrict__ ok, long long B) {
+  // the field tables: one 16-byte load a thread from the global image
   __shared__ GfTables t;
-  t3::gf_tables_init(t);
+  constexpr int kWords = sizeof(GfTables) / 16;
+  for (int w = threadIdx.x; w < kWords; w += blockDim.x)
+    reinterpret_cast<uint4*>(&t)[w] = reinterpret_cast<const uint4*>(kGfTableImage)[w];
+  __syncthreads();
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b < B) rs_block<R>(t, recv, out, ok, B, b);
 }
@@ -159,7 +169,7 @@ rs_correct_kernel(const int8_t* __restrict__ recv, int8_t* __restrict__ out,
 extern "C" int t3_rs_correct(const void* recv, void* out, void* ok,
                              long long B, int k, void* stream) {
   if (B <= 0) return 0;
-  constexpr int threads = 256;
+  constexpr int threads = T3_RS_THREADS;
   const unsigned blocks = (unsigned)((B + threads - 1) / threads);
   cudaStream_t s = (cudaStream_t)stream;
   const int8_t* in = (const int8_t*)recv;

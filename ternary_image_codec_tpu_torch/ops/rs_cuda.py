@@ -10,14 +10,18 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from ..runtime import build
+from . import gf27
 
 # kernel launches made by rs_correct in this process
 launches = 0
 
 _KS = (18, 20, 22, 24)
+# the constants K2 compiles in, written by ``write_header``
+HEADER = build.CSRC / "rs_tables.cuh"
 
 
 @functools.cache
@@ -57,3 +61,44 @@ def rs_correct(recv_pm: torch.Tensor, k: int):
     build.check(lib, err, "rs_correct launch")
     launches += 1
     return out, ok
+
+
+def gf_table_image() -> np.ndarray:
+    """K2's GF(27) tables as the kernel's ``GfTables`` lays them out, 1,552
+    bytes: mul and add (27 x 27, row a, column b), neg, inv (27 each), exp
+    (alpha^0..25), zeros to a multiple of 16."""
+    T = gf27.tables()
+    img = np.concatenate([T["mul"].ravel(), T["add"].ravel(),
+                          gf27.np_gf_neg(np.arange(27)), T["inv"], T["exp"]])
+    return np.pad(img, (0, -len(img) % 16)).astype(np.uint8)
+
+
+def header_arrays() -> dict:
+    """Name -> (C element type, array) of every constant in ``HEADER``."""
+    return {"kGfTableImage": ("uint8_t", gf_table_image())}
+
+
+def header_source() -> str:
+    """The text of ``HEADER``."""
+    out = ["// Generated by `python -m ternary_image_codec_tpu_torch.ops.rs_cuda`",
+           "// from ops/gf27.py and ops/rs.py; do not edit.  K2's constants.",
+           "#pragma once", "", "#include <cstdint>", ""]
+    for name, (ctype, a) in header_arrays().items():
+        dims = "".join(f"[{n}]" for n in a.shape)
+        space = "__device__" if ctype == "uint8_t" else "__constant__"
+        out.append(f"{space} __align__(16) const {ctype} {name}{dims} = {{")
+        flat = [str(int(v)) + ("u" if ctype == "uint32_t" else "")
+                for v in a.ravel()]
+        per = 16 if ctype == "uint8_t" else 6
+        out += ["    " + ", ".join(flat[i:i + per]) + ","
+                for i in range(0, len(flat), per)]
+        out += ["};", ""]
+    return "\n".join(out)
+
+
+def write_header() -> None:
+    HEADER.write_text(header_source())
+
+
+if __name__ == "__main__":
+    write_header()
