@@ -38,17 +38,6 @@ __device__ __forceinline__ int gpow(const GfTables& t, int e) {
   return t.exp[((e % 26) + 26) % 26];
 }
 
-// syndrome S_j = sum_i c_i alpha^((j+1) i) of a codeword held as symbols
-__device__ __forceinline__ int syndrome(const GfTables& t, const int* c, int j) {
-  int acc = 0;
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc = gadd(t, acc, gmul(t, c[i], t.exp[((j + 1) * i) % 26]));
-  return acc;
-}
-
-// x mod 3 in [0, 3) for any int (floor semantics)
-__device__ __forceinline__ int mod3(int x) { return ((x % 3) + 3) % 3; }
-
 }  // namespace t3
 
 extern "C" const char* t3_error_string(int err) {

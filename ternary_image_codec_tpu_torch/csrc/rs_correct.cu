@@ -10,18 +10,30 @@
 //   ok = (recheck zero && nroots <= t && nroots == L) || zero syndrome,
 // and a zero-syndrome block returns its input.
 //
-// What bounds it on the H100: it is latency-bound integer work.  Per block
-// it reads 78 bytes and writes 3k + 1, but runs ~1,000 dependent GF(27)
-// table lookups (r syndromes x 26, r BM steps, 26 Chien points x r+1,
-// Forney at the roots, recheck).  The simple design: every thread owns one
-// block and keeps all state (26 symbols, the r syndromes, sigma and the
-// pre-shifted B(x) of <= 9 coefficients, L) in registers; the loops are
-// unrolled over a compile-time r, so indices are static; the field tables
-// sit in shared memory; reads and writes are coalesced because the block
-// index is the minor axis.  The BM is the reference's `_bm_core`
-// (rs.py:167) step for step, so L, and with it the nroots == L rule, match
-// the reference exactly.  Making it fast (several blocks per thread,
-// log-domain products, fewer table reads) is later work.
+// What bounds it on the H100: not bytes.  A codeword is 78 bytes in and
+// 3k + 1 out, so the memory bound is 0.011 ms at 262,144 codewords and
+// under a microsecond at the main path's 6,144; the time goes to the
+// dependent integer work of each codeword's chain, and at the main path's
+// sizes to the latency of one dirty warp's chain.  The design, one thread
+// per codeword with all state in registers and every loop unrolled over a
+// compile-time r (so every index is static), in the steps that each made
+// it faster on the card (PERF.md, PR 4):
+//  1. the GF(27) tables (1,552 bytes) are not built per block: each block
+//     copies the image rs_tables.cuh holds (generated by ops/rs_cuda.py)
+//     to shared memory in 16-byte loads; blocks of 64 threads spread the
+//     path's windows over 96 SMs;
+//  2. the 78 digits are packed 4 to a register, and the syndromes and the
+//     recheck are the GF(3) map S2 of rs._matrices_pm(k): one dp4a per
+//     word against the packed map row, a warp-uniform constant operand,
+//     and one mod 3 per syndrome digit, no table reads.  A warp whose 32
+//     codewords all have zero syndromes writes its input's data and
+//     returns (most warps of a repair window).
+// What is left reads the tables in shared memory: the BM, which is the
+// reference's `_bm_core` (ternary_image_codec_tpu/ops/rs.py:167) step for
+// step, so L and with it the nroots == L rule match it exactly; Chien;
+// Omega; and Forney at the roots.  The correction is added digit by digit
+// into the packed word (a byte-wise mod 3).  Reads and writes are
+// coalesced: the block index is the minor axis.
 #include "gf27.cuh"
 #include "rs_tables.cuh"
 
@@ -35,30 +47,59 @@ namespace {
 using t3::GfTables;
 using t3::N;
 
+constexpr int NW = 20;         // 78 digits of a codeword, 4 to a word
+
+// x mod 3 for a dp4a sum of int8 digits against map entries 0..2 (the
+// sum is above -2^15, so the bias keeps it non-negative)
+__device__ __forceinline__ int mod3_sum(int x) {
+  return (int)((unsigned)(x + 3 * 16384) % 3u);
+}
+
+// bytes 0..4 -> bytes mod 3, four at a time
+__device__ __forceinline__ uint32_t mod3_bytes(uint32_t v) {
+  return v - 3u * (((v + 0x01010101u) >> 2) & 0x01010101u);
+}
+
+// byte f of the packed digits (f = 26 e + i: digit e of symbol i)
+__device__ __forceinline__ int digit(const uint32_t (&x)[NW], int f) {
+  return (int)((x[f / 4] >> (8 * (f % 4))) & 0xffu);
+}
+
+// syndrome digit q (digit q / R of S_{q % R}) of packed digits: row q of
+// rs._matrices_pm(k)["S2"], packed the same way, against them, mod 3
 template <int R>
-__device__ void rs_block(const GfTables& t, const int8_t* __restrict__ recv,
-                         int8_t* __restrict__ out, bool* __restrict__ ok,
-                         long long B, long long b) {
+__device__ __forceinline__ int s2_row(const uint32_t (&x)[NW], int q) {
+  int acc = 0;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) acc = __dp4a((int)x[w], (int)kS2[R / 2 - 1][q][w], acc);
+  return mod3_sum(acc);
+}
+
+// the data digits (3, K) of packed digits to out (3, K, B), coalesced
+template <int K>
+__device__ __forceinline__ void store_data(const uint32_t (&x)[NW],
+                                           int8_t* __restrict__ out,
+                                           long long B, long long b) {
+#pragma unroll
+  for (int e = 0; e < 3; ++e)
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      out[(long long)(e * K + i) * B + b] = (int8_t)digit(x, e * N + i);
+}
+
+// BM, Chien, Omega and Forney of one dirty codeword, then the recheck
+template <int R>
+__device__ void repair(const GfTables& t, const uint32_t (&x)[NW],
+                       const int (&sd)[3 * R], bool szero,
+                       int8_t* __restrict__ out, bool* __restrict__ ok,
+                       long long B, long long b) {
   constexpr int K = N - R;
   constexpr int SMAX = R + 1;
   constexpr int T = R / 2;
 
-  int c[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    c[i] = t3::mod3(recv[(long long)i * B + b]) +
-           3 * t3::mod3(recv[(long long)(N + i) * B + b]) +
-           9 * t3::mod3(recv[(long long)(2 * N + i) * B + b]);
-  }
-
-  // syndromes S_j = sum_i c_i alpha^((j+1) i)
   int S[R];
-  bool szero = true;
 #pragma unroll
-  for (int j = 0; j < R; ++j) {
-    S[j] = t3::syndrome(t, c, j);
-    szero = szero && S[j] == 0;
-  }
+  for (int j = 0; j < R; ++j) S[j] = sd[j] + 3 * sd[R + j] + 9 * sd[2 * R + j];
 
   // inversionless BM, B(x) kept pre-shifted (Bx = x^m B)
   int sig[SMAX], Bx[SMAX];
@@ -114,11 +155,13 @@ __device__ void rs_block(const GfTables& t, const int8_t* __restrict__ recv,
     om[j] = acc;
   }
 
-  // Forney at the roots: corrected = recv + Omega(X) / sigma'(X)
-  int fixed[N];
+  // Forney at the roots: corrected = recv + Omega(X) / sigma'(X), added
+  // digit by digit into a copy of the packed word
+  uint32_t fx[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) fx[w] = x[w];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    fixed[i] = c[i];
     if (roots & (1u << i)) {
       int num = 0, den = 0;
 #pragma unroll
@@ -130,37 +173,81 @@ __device__ void rs_block(const GfTables& t, const int8_t* __restrict__ recv,
           den = t3::gadd(t, den, t3::gmul(t, d % 3, term));
         }
       }
-      fixed[i] = t3::gadd(t, c[i], t3::gmul(t, num, t.inv[den]));
+      const unsigned y = (unsigned)t3::gmul(t, num, t.inv[den]);
+      fx[i / 4] += (y % 3u) << (8 * (i % 4));
+      fx[(N + i) / 4] += ((y / 3u) % 3u) << (8 * ((N + i) % 4));
+      fx[(2 * N + i) / 4] += (y / 9u) << (8 * ((2 * N + i) % 4));
     }
   }
+#pragma unroll
+  for (int w = 0; w < NW; ++w) fx[w] = mod3_bytes(fx[w]);
 
   // recheck the corrected word
   bool rezero = true;
 #pragma unroll
-  for (int j = 0; j < R; ++j) rezero = rezero && t3::syndrome(t, fixed, j) == 0;
+  for (int q = 0; q < 3 * R; ++q) rezero = rezero && s2_row<R>(fx, q) == 0;
   ok[b] = (rezero && nroots <= T && nroots == L) || szero;
-
 #pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int s = szero ? c[i] : fixed[i];
-    out[(long long)i * B + b] = (int8_t)(s % 3);
-    out[(long long)(K + i) * B + b] = (int8_t)((s / 3) % 3);
-    out[(long long)(2 * K + i) * B + b] = (int8_t)(s / 9);
-  }
+  for (int w = 0; w < NW; ++w) fx[w] = szero ? x[w] : fx[w];
+  store_data<K>(fx, out, B, b);
 }
 
 template <int R>
 __global__ void __launch_bounds__(T3_RS_THREADS)
 rs_correct_kernel(const int8_t* __restrict__ recv, int8_t* __restrict__ out,
                   bool* __restrict__ ok, long long B) {
-  // the field tables: one 16-byte load a thread from the global image
+  // the field tables: 16-byte words of the global image, stored to shared
+  // memory once the codeword's loads are in flight
   __shared__ GfTables t;
   constexpr int kWords = sizeof(GfTables) / 16;
-  for (int w = threadIdx.x; w < kWords; w += blockDim.x)
-    reinterpret_cast<uint4*>(&t)[w] = reinterpret_cast<const uint4*>(kGfTableImage)[w];
+  constexpr int kPer = (kWords + T3_RS_THREADS - 1) / T3_RS_THREADS;
+  const uint4* img = reinterpret_cast<const uint4*>(kGfTableImage);
+  uint4 tw[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int w = threadIdx.x + p * T3_RS_THREADS;
+    if (w < kWords) tw[p] = img[w];
+  }
+
+  // the codeword's 78 digits (plane-major, block index minor), 4 a word;
+  // lanes past B hold the zero codeword
+  const long long b = (long long)blockIdx.x * T3_RS_THREADS + threadIdx.x;
+  const bool live = b < B;
+  uint32_t x[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) x[w] = 0;
+  if (live) {
+#pragma unroll
+    for (int f = 0; f < 3 * N; ++f)
+      x[f / 4] |= (uint32_t)(uint8_t)recv[(long long)f * B + b] << (8 * (f % 4));
+  }
+
+  // syndrome digits: the GF(3) map S2 by dp4a (map rows are warp-uniform
+  // constant operands)
+  int sd[3 * R];
+  bool szero = true;
+#pragma unroll
+  for (int q = 0; q < 3 * R; ++q) {
+    sd[q] = s2_row<R>(x, q);
+    szero = szero && sd[q] == 0;
+  }
+
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int w = threadIdx.x + p * T3_RS_THREADS;
+    if (w < kWords) reinterpret_cast<uint4*>(&t)[w] = tw[p];
+  }
   __syncthreads();
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < B) rs_block<R>(t, recv, out, ok, B, b);
+
+  // a warp whose every codeword is clean returns its input's data
+  if (__all_sync(0xffffffffu, szero)) {
+    if (live) {
+      store_data<N - R>(x, out, B, b);
+      ok[b] = true;
+    }
+    return;
+  }
+  if (live) repair<R>(t, x, sd, szero, out, ok, B, b);
 }
 
 }  // namespace

@@ -4,6 +4,19 @@ Replaces the JAX package's Pallas kernel ops/rs_pallas.py (``_kernel``,
 called by ``decode_dig_fused``); the kernel is csrc/rs_correct.cu and its
 plain torch twin is ``rs.correct_pm_ref``.  ``rs.correct_pm`` routes CUDA
 tensors here.
+
+The kernel runs one codeword a thread, 64 threads a block.  It is bound
+by each codeword's chain of dependent integer work, not by its 145 bytes,
+so its design cuts that chain: no per-block table build (it copies the
+field tables' image from csrc/rs_tables.cuh), the syndromes and the
+recheck as dp4a rows of the packed GF(3) map S2 (also in that header) in
+place of table reads, and a warp of clean codewords
+returns right after its syndromes.  ``header_source`` writes the header
+from ``gf27.tables()`` and ``rs._matrices_pm``
+(``python -m ternary_image_codec_tpu_torch.ops.rs_cuda``); the CPU tests
+hold its bytes against both and model the kernel on them.  The launch
+costs the host two ``torch.empty`` and a ctypes call: at the main path's
+sizes that is most of a call's time (PERF.md).
 """
 from __future__ import annotations
 
@@ -14,7 +27,7 @@ import numpy as np
 import torch
 
 from ..runtime import build
-from . import gf27
+from . import gf27, rs
 
 # kernel launches made by rs_correct in this process
 launches = 0
@@ -73,9 +86,31 @@ def gf_table_image() -> np.ndarray:
     return np.pad(img, (0, -len(img) % 16)).astype(np.uint8)
 
 
+def pack_rows(M2: np.ndarray) -> np.ndarray:
+    """A GF(3) map over plane-major digits, (rows, 3, n) int8 entries 0..2,
+    as the kernel's dp4a takes it: (rows, ceil(3n / 4)) uint32, the entry
+    for digit f = n e + i in byte f % 4 of word f // 4."""
+    rows = M2.reshape(M2.shape[0], -1).astype(np.uint8)
+    rows = np.pad(rows, ((0, 0), (0, -rows.shape[1] % 4)))
+    return np.ascontiguousarray(rows).view("<u4")
+
+
+def packed_maps(key: str, nrows: int, nwords: int) -> np.ndarray:
+    """``_matrices_pm(k)[key]`` packed for r = 2, 4, 6, 8 (index r/2 - 1),
+    zero-padded to (4, nrows, nwords) uint32."""
+    out = np.zeros((4, nrows, nwords), dtype=np.uint32)
+    for r in (2, 4, 6, 8):
+        p = pack_rows(rs._matrices_pm(26 - r)[key])
+        out[r // 2 - 1, :p.shape[0], :p.shape[1]] = p
+    return out
+
+
 def header_arrays() -> dict:
-    """Name -> (C element type, array) of every constant in ``HEADER``."""
-    return {"kGfTableImage": ("uint8_t", gf_table_image())}
+    """Name -> (C element type, array) of every constant in ``HEADER``:
+    the field tables' image and the syndrome map S2 (3r rows over the 78
+    received digits)."""
+    return {"kGfTableImage": ("uint8_t", gf_table_image()),
+            "kS2": ("uint32_t", packed_maps("S2", 24, 20))}
 
 
 def header_source() -> str:
