@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # Compare two trees of this repo on one NVIDIA card, in turns A, B, B, A:
-# first chip_smoke.py from each tree, then profile_port.py from each.  Each
-# tree builds its own kernels under its own build/.
+# first chip_smoke.py from each tree (the four turns twice, for more
+# readings of the host-bound event times), then profile_port.py from each.
+# Each tree builds its own kernels under its own build/.
 #
 # The trees are made before the call, from git, into a directory that
 # .gitignore lists; for the last commit against the working tree:
@@ -35,10 +36,12 @@ run() {  # run LABEL TREE SCRIPT LINES
   [ $r -eq 0 ] || rc=1
 }
 
-run smoke_1_A "$a" chip_smoke.py 4
-run smoke_2_B "$b" chip_smoke.py 4
-run smoke_3_B "$b" chip_smoke.py 4
-run smoke_4_A "$a" chip_smoke.py 4
+for i in 1 2; do
+  run "smoke_${i}_1_A" "$a" chip_smoke.py 4
+  run "smoke_${i}_2_B" "$b" chip_smoke.py 4
+  run "smoke_${i}_3_B" "$b" chip_smoke.py 4
+  run "smoke_${i}_4_A" "$a" chip_smoke.py 4
+done
 run profile_1_A "$a" profile_port.py 0
 run profile_2_B "$b" profile_port.py 0
 run profile_3_B "$b" profile_port.py 0

@@ -12,10 +12,11 @@ Phases, one output line each:
    for bit on every block, for k in {18, 20, 22, 24}: 262,144 codewords
    each (a third with <= t errors, a third with t+1, the rest clean), again
    at the sizes the main path launches it with and at a size that is not a
-   multiple of a block, and on the fused window's own traffic (k=22, 6,144
-   codewords, most warps clean, one warp dirty in its last lane only); its
-   times by CUDA events over calls one by one (``ms``) and from a CUDA
-   graph (``device_ms``) at 262,144, at the path sizes and on the window;
+   multiple of a block, on digits outside 0..2 (which count mod 3), and
+   on a synthetic copy of the fused window (k=22, 6,144 codewords, most
+   warps clean, one warp dirty in its last lane only); its times by CUDA
+   events over calls one by one (``ms``) and from a CUDA graph
+   (``device_ms``) at 262,144, at the path sizes and on the window;
 4. K1 (check decode) against its plain twin, max_abs_err 0 and equal ok
    flags: 8K superframes (every 8th damaged) as the encoder's strided
    view and as a contiguous copy, at 2,025 and at the roundtrip's 64;
@@ -30,14 +31,16 @@ Phases, one output line each:
    fused strategy, clean and under the benchmark's damage model (fused and
    auto), also from contiguous (n_sf, total, 9) words (every strategy
    clean, fused dirty), then an overcap copy that must fail safe; both
-   kernels' launch counters must rise; encode, clean and dirty decode ms
-   per frame.
+   kernels' launch counters must rise; K2's real repair windows of the
+   dirty decode (dirty warps counted beside the synthetic copy's, held
+   bit-equal to the twin, the k=22 one timed); encode, clean and dirty
+   decode ms per frame.
 
 Then a JSON line with each kernel's numbers (``device_ms`` is the
-CUDA-graph time; K2's ``at_path_sizes`` holds its path-size times), the ``nvidia-smi`` line, and
-as the last line ``{"ok": true, "device": {...}}``.  Any failed check exits
-nonzero before that line is printed.  Tolerance everywhere: zero (the codec
-is integer arithmetic).
+CUDA-graph time; K2's ``at_path_sizes`` holds its path-size times), the
+``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failed check exits nonzero before that line is printed.
+Tolerance everywhere: zero (the codec is integer arithmetic).
 """
 import json
 import subprocess
@@ -53,7 +56,7 @@ K2_BLOCKS = 262_144
 # K2's launch sizes on the main path: per k-group of body bands, 16 blocks
 # x 6 pages x the superframes repaired (64 in the fused window, 20 for the
 # damaged ones under auto); header blocks, 2 per superframe repaired.  The
-# tail size leaves the last 256-thread block partly empty.
+# tail size leaves the kernel's last block partly empty.
 K2_PATH_BLOCKS = {18: (128, 40), 20: (6144, 1920), 22: (6144, 1920)}
 K2_TAIL_BLOCKS = 1000
 K2_PAGE = 16           # blocks per page of the paged corrector
@@ -207,24 +210,32 @@ def phase_k2(torch, dev):
     rng = np.random.default_rng(3)
     worst, held, times = 0, [], {}
 
-    def hold(k, nerr, what):
+    def equal(k, recv, what):
         nonlocal worst
-        data_np, recv_np = _k2_codewords(torch, k, nerr, rng)
-        data = torch.as_tensor(data_np, device=dev)
-        recv = torch.as_tensor(recv_np, device=dev)
         got, got_ok = rs_cuda.rs_correct(recv, k)
         want, want_ok = rs.correct_pm_ref(recv, k)
         torch.cuda.synchronize()
-        what = f"k={k} {what}"
         require(torch.equal(got_ok, want_ok), f"K2 {what}: ok flags differ")
         require(torch.equal(got, want), f"K2 {what}: data differs")
-        within = torch.as_tensor(nerr <= (26 - k) // 2, device=dev)
-        require(bool(got_ok[within].all()), f"K2 {what}: a <= t block failed")
-        require(torch.equal(got[:, :, within], data[:, :, within]),
-                f"K2 {what}: a <= t block did not decode to its data")
         worst = max(worst, int((got.to(torch.int16)
                                 - want.to(torch.int16)).abs().max()))
         held.append(what)
+        return got, got_ok, want_ok
+
+    def hold(k, nerr, what, moved=False):
+        data_np, recv_np = _k2_codewords(torch, k, nerr, rng)
+        if moved:   # every digit moved by a multiple of 3, out of 0..2
+            recv_np = (recv_np + 3 * rng.integers(-42, 42, recv_np.shape)
+                       ).astype(np.int8)
+        data = torch.as_tensor(data_np, device=dev)
+        recv = torch.as_tensor(recv_np, device=dev)
+        what = f"k={k} {what}"
+        got, got_ok, want_ok = equal(k, recv, what)
+        within = torch.as_tensor(nerr <= (26 - k) // 2, device=dev)
+        require(bool(got_ok[within].all()), f"K2 {what}: a <= t block failed")
+        require(torch.equal(torch.remainder(got[:, :, within], 3),
+                            data[:, :, within]),
+                f"K2 {what}: a <= t block did not decode to its data")
         return recv, float(want_ok.float().mean())
 
     def timed(key, recv, k, reps, plain=False):
@@ -244,6 +255,15 @@ def phase_k2(torch, dev):
                 times[f"k={k} B={B}"]["ok_rate"] = ok_rate
             elif B != K2_TAIL_BLOCKS:
                 timed(f"k={k} B={B}", recv, k, 100)
+        # digits outside 0..2 count as their value mod 3
+        hold(k, _k2_spread(k, K2_TAIL_BLOCKS), f"B={K2_TAIL_BLOCKS} digits "
+             "moved by multiples of 3", moved=True)
+        noise = torch.randint(-128, 128, (3, 26, K2_TAIL_BLOCKS), device=dev,
+                              dtype=torch.int8, generator=torch.Generator(
+                                  device=dev).manual_seed(k))
+        noise.view(-1)[:256] = (torch.arange(256, device=dev) - 128
+                                ).to(torch.int8)
+        equal(k, noise, f"k={k} random int8 digits B={K2_TAIL_BLOCKS}")
     nerr = _k2_window(22)
     recv, _ = hold(22, nerr, f"fused window B={len(nerr)}")
     timed(f"k=22 window B={len(nerr)}", recv, 22, 100)
@@ -413,6 +433,35 @@ def bench_damage(n_sf, total_w):
     return si_sf, (si, bi, pi, dlt)
 
 
+def _dirty_warps(torch, dirty):
+    """(dirty warps, warps) of a flag per codeword, 32 codewords a warp."""
+    pad = torch.nn.functional.pad(dirty, (0, -dirty.numel() % 32))
+    return int(pad.reshape(-1, 32).any(1).sum()), pad.numel() // 32
+
+
+def k2_real_windows(torch, windows):
+    """K2's inputs from one fused dirty decode: for each, k, codewords and
+    dirty warps (a codeword with a nonzero syndrome makes its warp dirty);
+    the k=22 window held bit-equal to the plain twin and timed."""
+    from ternary_image_codec_tpu_torch.ops import rs, rs_cuda
+    seen = []
+    for recv, k in windows:
+        nz = (rs.syndromes_pm(recv, k) != 0).flatten(0, 1).any(0)
+        seen.append((k, recv.shape[-1], "%d/%d" % _dirty_warps(torch, nz)))
+        got, got_ok = rs_cuda.rs_correct(recv, k)
+        want, want_ok = rs.correct_pm_ref(recv, k)
+        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
+                f"K2 on the real k={k} window: differs from plain")
+    recv = max((w for w, k in windows if k == 22), key=lambda w: w.shape[-1])
+    run = lambda: rs_cuda.rs_correct(recv, 22)
+    synth = torch.as_tensor(_k2_window(22) > 0)
+    return {"windows": seen,
+            "synthetic": "%d/%d" % _dirty_warps(torch, synth),
+            "times": {"B": recv.shape[-1], "ms": cuda_ms(torch, run, 100),
+                      "device_ms": graph_ms(torch, run, 100),
+                      "bound_ms": k2_bound_ms(22, recv.shape[-1])}}
+
+
 def phase_main(torch, dev, cfg):
     import ternary_image_codec_tpu_torch as port
     from ternary_image_codec_tpu_torch.ops import dec_cuda, gf27, rs_cuda
@@ -468,7 +517,17 @@ def phase_main(torch, dev, cfg):
     ms_auto, (out, ok) = wall_ms(torch, lambda: dec(dirty, "auto"))
     require(bool(ok), "dirty auto decode: ok is False")
     require(torch.equal(out, raw), "dirty auto decode differs from input")
-    out, ok = dec(dirty.contiguous())
+    # K2's inputs of this decode are kept: the real repair windows
+    windows, rs_correct = [], rs_cuda.rs_correct
+
+    def keep(recv, k):
+        windows.append((recv.clone(), k))
+        return rs_correct(recv, k)
+    rs_cuda.rs_correct = keep
+    try:
+        out, ok = dec(dirty.contiguous())
+    finally:
+        rs_cuda.rs_correct = rs_correct
     require(bool(ok) and torch.equal(out, raw),
             "dirty fused decode of contiguous words failed")
 
@@ -489,6 +548,7 @@ def phase_main(torch, dev, cfg):
                 "rs_correct": rs_cuda.launches}
     require(all(v > 0 for v in launches.values()),
             f"a kernel never ran on the main path: {launches}")
+    real = k2_real_windows(torch, windows)
 
     # agreement with the plain CPU path on a small input: four superframes,
     # two of them damaged
@@ -512,12 +572,15 @@ def phase_main(torch, dev, cfg):
     print(f"[5 main path, one 8K frame: {n_raw} RAW words, {n_sf} superframes, "
           f"P2 luma UEP] exact round trip clean (fused; and all four strategies "
           f"on contiguous words), dirty D=20 E=8 hdr=25% (fused, auto, fused "
-          f"on contiguous words), overcap flagged; launches {launches}; ms/frame first "
+          f"on contiguous words), overcap flagged; launches {launches}; K2's "
+          f"real windows (k, codewords, dirty warps of warps): {real['windows']}, "
+          f"bit-equal to plain, synthetic k=22 window {real['synthetic']}; "
+          f"K2 on the real k=22 window: {real['times']}; ms/frame first "
           f"pass: encode {ms_enc:.1f}, clean decode {ms_clean:.1f}, dirty decode "
           f"{ms_dirty:.1f}, dirty auto {ms_auto:.1f}; warm: encode "
           f"{ms_enc2:.1f}, clean decode {ms_clean2:.1f}, dirty decode "
           f"{ms_dirty2:.1f}", flush=True)
-    return launches
+    return launches, real
 
 
 def main():
@@ -533,8 +596,10 @@ def main():
     codec = port.SuperframeCodec(cfg, device=dev)
     n_sf = -(-(W8K * H8K // 2) // cfg.superframe_words)
     k1 = phase_k1(torch, dev, codec, n_sf)
-    launches = phase_main(torch, dev, cfg)
+    launches, real = phase_main(torch, dev, cfg)
     k2_big = k2[f"k=22 B={K2_BLOCKS}"]
+    t = dict(real["times"])
+    k2[f"k=22 real window B={t.pop('B')}"] = t
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         {"name": "check_decode", "route": "cuda",

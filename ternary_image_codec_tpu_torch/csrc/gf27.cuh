@@ -4,7 +4,7 @@
 // p(x) = x^3 + 2x + 1; the primitive element is alpha = x (symbol 3).
 // The product, sum, negation, inverse and alpha-power tables (1.5 KB) are
 // read from shared memory, so the hot loops are single table reads; K2
-// copies them in from the image ops/rs_cuda.py generates (rs_tables.cuh).
+// copies them in from the image in rs_tables.cuh (ops/rs_tables.py).
 #pragma once
 
 #include <cstdint>

@@ -4,11 +4,12 @@
 // `_kernel` (launched by `decode_dig_fused`): syndromes, inversionless
 // Berlekamp-Massey, Chien search, Omega = S*sigma mod x^r, Forney with the
 // field inverse, correction, and a syndrome recheck of the corrected word.
-// Its contract is the reference's `rs._correct_pm` with the syndromes
-// computed here: in (3, 26, B) int8 digits 0..2 (plane-major, block axis
-// minor), out (3, k, B) data digits and ok (B,):
+// Its contract is the port's twin `rs.correct_pm_ref`: in (3, 26, B) int8
+// digits (plane-major, block axis minor; a digit outside 0..2 counts as its
+// value mod 3), out (3, k, B) data digits and ok (B,):
 //   ok = (recheck zero && nroots <= t && nroots == L) || zero syndrome,
-// and a zero-syndrome block returns its input.
+// a zero-syndrome block returns its input as it is, and any other its
+// corrected digits mod 3.
 //
 // What bounds it on the H100: not bytes.  A codeword is 78 bytes in and
 // 3k + 1 out, so the memory bound is 0.011 ms at 262,144 codewords and
@@ -19,15 +20,16 @@
 // compile-time r (so every index is static), in the steps that each made
 // it faster on the card (PERF.md, PR 4):
 //  1. the GF(27) tables (1,552 bytes) are not built per block: each block
-//     copies the image rs_tables.cuh holds (generated by ops/rs_cuda.py)
+//     copies the image rs_tables.cuh holds (generated by ops/rs_tables.py)
 //     to shared memory in 16-byte loads; blocks of 64 threads spread the
 //     path's windows over 96 SMs;
 //  2. the 78 digits are packed 4 to a register, and the syndromes and the
 //     recheck are the GF(3) map S2 of rs._matrices_pm(k): one dp4a per
-//     word against the packed map row, a warp-uniform constant operand,
-//     and one mod 3 per syndrome digit, no table reads.  A warp whose 32
-//     codewords all have zero syndromes writes its input's data and
-//     returns (most warps of a repair window).
+//     word against the packed map row, known when the kernel is compiled
+//     (so an immediate operand, not a constant-cache read), and one mod 3
+//     per syndrome digit, no table reads.  A warp whose 32 codewords all
+//     have zero syndromes writes its input's data and returns (most warps
+//     of a repair window).
 // What is left reads the tables in shared memory: the BM, which is the
 // reference's `_bm_core` (ternary_image_codec_tpu/ops/rs.py:167) step for
 // step, so L and with it the nroots == L rule match it exactly; Chien;
@@ -37,16 +39,12 @@
 #include "gf27.cuh"
 #include "rs_tables.cuh"
 
-// threads per block (a build may override it, as k2_sweep.py does)
-#ifndef T3_RS_THREADS
-#define T3_RS_THREADS 64
-#endif
-
 namespace {
 
 using t3::GfTables;
 using t3::N;
 
+constexpr int kThreads = 64;   // threads per block
 constexpr int NW = 20;         // 78 digits of a codeword, 4 to a word
 
 // x mod 3 for a dp4a sum of int8 digits against map entries 0..2 (the
@@ -55,9 +53,20 @@ __device__ __forceinline__ int mod3_sum(int x) {
   return (int)((unsigned)(x + 3 * 16384) % 3u);
 }
 
-// bytes 0..4 -> bytes mod 3, four at a time
+// bytes 0..5 -> bytes mod 3, four at a time
 __device__ __forceinline__ uint32_t mod3_bytes(uint32_t v) {
   return v - 3u * (((v + 0x01010101u) >> 2) & 0x01010101u);
+}
+
+// int8 digits -> digits mod 3 (0..2), four at a time.  A byte u with sign
+// bit s is the digit u - 256 s = u + 2 s mod 3; as 16 = 4 = 1 mod 3, adding
+// its nibbles and then its 2-bit pieces keeps it mod 3 and shrinks it to
+// 0..32, 0..11, 0..5
+__device__ __forceinline__ uint32_t mod3_digits(uint32_t v) {
+  uint32_t a = (v & 0x0f0f0f0fu) + ((v >> 4) & 0x0f0f0f0fu) + ((v >> 6) & 0x02020202u);
+  a = (a & 0x03030303u) + ((a >> 2) & 0x0f0f0f0fu);
+  a = (a & 0x03030303u) + ((a >> 2) & 0x03030303u);
+  return mod3_bytes(a);
 }
 
 // byte f of the packed digits (f = 26 e + i: digit e of symbol i)
@@ -156,10 +165,10 @@ __device__ void repair(const GfTables& t, const uint32_t (&x)[NW],
   }
 
   // Forney at the roots: corrected = recv + Omega(X) / sigma'(X), added
-  // digit by digit into a copy of the packed word
+  // digit by digit into the packed word's digits mod 3
   uint32_t fx[NW];
 #pragma unroll
-  for (int w = 0; w < NW; ++w) fx[w] = x[w];
+  for (int w = 0; w < NW; ++w) fx[w] = mod3_digits(x[w]);
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     if (roots & (1u << i)) {
@@ -193,25 +202,25 @@ __device__ void repair(const GfTables& t, const uint32_t (&x)[NW],
 }
 
 template <int R>
-__global__ void __launch_bounds__(T3_RS_THREADS)
+__global__ void __launch_bounds__(kThreads)
 rs_correct_kernel(const int8_t* __restrict__ recv, int8_t* __restrict__ out,
                   bool* __restrict__ ok, long long B) {
   // the field tables: 16-byte words of the global image, stored to shared
   // memory once the codeword's loads are in flight
   __shared__ GfTables t;
   constexpr int kWords = sizeof(GfTables) / 16;
-  constexpr int kPer = (kWords + T3_RS_THREADS - 1) / T3_RS_THREADS;
+  constexpr int kPer = (kWords + kThreads - 1) / kThreads;
   const uint4* img = reinterpret_cast<const uint4*>(kGfTableImage);
   uint4 tw[kPer];
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
-    const int w = threadIdx.x + p * T3_RS_THREADS;
+    const int w = threadIdx.x + p * kThreads;
     if (w < kWords) tw[p] = img[w];
   }
 
   // the codeword's 78 digits (plane-major, block index minor), 4 a word;
   // lanes past B hold the zero codeword
-  const long long b = (long long)blockIdx.x * T3_RS_THREADS + threadIdx.x;
+  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
   const bool live = b < B;
   uint32_t x[NW];
 #pragma unroll
@@ -234,7 +243,7 @@ rs_correct_kernel(const int8_t* __restrict__ recv, int8_t* __restrict__ out,
 
 #pragma unroll
   for (int p = 0; p < kPer; ++p) {
-    const int w = threadIdx.x + p * T3_RS_THREADS;
+    const int w = threadIdx.x + p * kThreads;
     if (w < kWords) reinterpret_cast<uint4*>(&t)[w] = tw[p];
   }
   __syncthreads();
@@ -256,17 +265,16 @@ rs_correct_kernel(const int8_t* __restrict__ recv, int8_t* __restrict__ out,
 extern "C" int t3_rs_correct(const void* recv, void* out, void* ok,
                              long long B, int k, void* stream) {
   if (B <= 0) return 0;
-  constexpr int threads = T3_RS_THREADS;
-  const unsigned blocks = (unsigned)((B + threads - 1) / threads);
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
   cudaStream_t s = (cudaStream_t)stream;
   const int8_t* in = (const int8_t*)recv;
   int8_t* o = (int8_t*)out;
   bool* f = (bool*)ok;
   switch (26 - k) {
-    case 2: rs_correct_kernel<2><<<blocks, threads, 0, s>>>(in, o, f, B); break;
-    case 4: rs_correct_kernel<4><<<blocks, threads, 0, s>>>(in, o, f, B); break;
-    case 6: rs_correct_kernel<6><<<blocks, threads, 0, s>>>(in, o, f, B); break;
-    case 8: rs_correct_kernel<8><<<blocks, threads, 0, s>>>(in, o, f, B); break;
+    case 2: rs_correct_kernel<2><<<blocks, kThreads, 0, s>>>(in, o, f, B); break;
+    case 4: rs_correct_kernel<4><<<blocks, kThreads, 0, s>>>(in, o, f, B); break;
+    case 6: rs_correct_kernel<6><<<blocks, kThreads, 0, s>>>(in, o, f, B); break;
+    case 8: rs_correct_kernel<8><<<blocks, kThreads, 0, s>>>(in, o, f, B); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -204,7 +204,9 @@ def correct_pm_ref(recv_pm: torch.Tensor, k: int, maps=None):
     """Plain torch twin of the K2 kernel: the whole RS(26,k) decode of
     plane-major blocks.  recv_pm (3, 26, B) digits -> (data (3, k, B),
     ok (B,) bool).  ok = (recheck zero and nroots <= t and nroots == L)
-    or a zero syndrome; a zero-syndrome block returns its input."""
+    or a zero syndrome; a zero-syndrome block returns its input as it is,
+    any other its corrected digits mod 3 (a digit outside 0..2 counts as
+    its value mod 3)."""
     M = _maps(k, recv_pm.device, maps)
     r = N - k
     smax, t = r + 1, r // 2
@@ -244,8 +246,9 @@ def correct_pm_ref(recv_pm: torch.Tensor, k: int, maps=None):
 def correct_pm(recv_pm: torch.Tensor, k: int, maps=None):
     """RS(26,k) decode of plane-major blocks (3, 26, B) -> ((3, k, B), ok).
 
-    A CUDA tensor goes to the K2 kernel, a CPU tensor to ``correct_pm_ref``;
-    any other device raises."""
+    A CUDA tensor goes to the K2 kernel, a CPU tensor to ``correct_pm_ref``
+    (whose docstring gives the contract both keep); any other device
+    raises."""
     if recv_pm.device.type == "cuda":
         from . import rs_cuda
         return rs_cuda.rs_correct(recv_pm, k)

@@ -7,14 +7,11 @@ tensors here.
 
 The kernel runs one codeword a thread, 64 threads a block.  It is bound
 by each codeword's chain of dependent integer work, not by its 145 bytes,
-so its design cuts that chain: no per-block table build (it copies the
-field tables' image from csrc/rs_tables.cuh), the syndromes and the
-recheck as dp4a rows of the packed GF(3) map S2 (also in that header) in
-place of table reads, and a warp of clean codewords
-returns right after its syndromes.  ``header_source`` writes the header
-from ``gf27.tables()`` and ``rs._matrices_pm``
-(``python -m ternary_image_codec_tpu_torch.ops.rs_cuda``); the CPU tests
-hold its bytes against both and model the kernel on them.  The launch
+so its design cuts that chain: no per-block table build (blocks copy the
+field tables' image), the syndromes and the recheck as dp4a rows of the
+packed GF(3) map S2 in place of table reads, and a warp of clean
+codewords returns right after its syndromes.  Both constants are compiled
+in from csrc/rs_tables.cuh, which ops/rs_tables.py generates.  The launch
 costs the host two ``torch.empty`` and a ctypes call: at the main path's
 sizes that is most of a call's time (PERF.md).
 """
@@ -23,18 +20,14 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..runtime import build
-from . import gf27, rs
 
 # kernel launches made by rs_correct in this process
 launches = 0
 
 _KS = (18, 20, 22, 24)
-# the constants K2 compiles in, written by ``write_header``
-HEADER = build.CSRC / "rs_tables.cuh"
 
 
 @functools.cache
@@ -48,7 +41,7 @@ def _lib():
 
 
 def rs_correct(recv_pm: torch.Tensor, k: int):
-    """K2: (3, 26, B) int8 digits 0..2 on a CUDA device -> (data (3, k, B)
+    """K2: (3, 26, B) int8 digits on a CUDA device -> (data (3, k, B)
     int8, ok (B,) bool).  Raises on anything else."""
     global launches
     if recv_pm.device.type != "cuda":
@@ -74,66 +67,3 @@ def rs_correct(recv_pm: torch.Tensor, k: int):
     build.check(lib, err, "rs_correct launch")
     launches += 1
     return out, ok
-
-
-def gf_table_image() -> np.ndarray:
-    """K2's GF(27) tables as the kernel's ``GfTables`` lays them out, 1,552
-    bytes: mul and add (27 x 27, row a, column b), neg, inv (27 each), exp
-    (alpha^0..25), zeros to a multiple of 16."""
-    T = gf27.tables()
-    img = np.concatenate([T["mul"].ravel(), T["add"].ravel(),
-                          gf27.np_gf_neg(np.arange(27)), T["inv"], T["exp"]])
-    return np.pad(img, (0, -len(img) % 16)).astype(np.uint8)
-
-
-def pack_rows(M2: np.ndarray) -> np.ndarray:
-    """A GF(3) map over plane-major digits, (rows, 3, n) int8 entries 0..2,
-    as the kernel's dp4a takes it: (rows, ceil(3n / 4)) uint32, the entry
-    for digit f = n e + i in byte f % 4 of word f // 4."""
-    rows = M2.reshape(M2.shape[0], -1).astype(np.uint8)
-    rows = np.pad(rows, ((0, 0), (0, -rows.shape[1] % 4)))
-    return np.ascontiguousarray(rows).view("<u4")
-
-
-def packed_maps(key: str, nrows: int, nwords: int) -> np.ndarray:
-    """``_matrices_pm(k)[key]`` packed for r = 2, 4, 6, 8 (index r/2 - 1),
-    zero-padded to (4, nrows, nwords) uint32."""
-    out = np.zeros((4, nrows, nwords), dtype=np.uint32)
-    for r in (2, 4, 6, 8):
-        p = pack_rows(rs._matrices_pm(26 - r)[key])
-        out[r // 2 - 1, :p.shape[0], :p.shape[1]] = p
-    return out
-
-
-def header_arrays() -> dict:
-    """Name -> (C element type, array) of every constant in ``HEADER``:
-    the field tables' image and the syndrome map S2 (3r rows over the 78
-    received digits)."""
-    return {"kGfTableImage": ("uint8_t", gf_table_image()),
-            "kS2": ("uint32_t", packed_maps("S2", 24, 20))}
-
-
-def header_source() -> str:
-    """The text of ``HEADER``."""
-    out = ["// Generated by `python -m ternary_image_codec_tpu_torch.ops.rs_cuda`",
-           "// from ops/gf27.py and ops/rs.py; do not edit.  K2's constants.",
-           "#pragma once", "", "#include <cstdint>", ""]
-    for name, (ctype, a) in header_arrays().items():
-        dims = "".join(f"[{n}]" for n in a.shape)
-        space = "__device__" if ctype == "uint8_t" else "__constant__"
-        out.append(f"{space} __align__(16) const {ctype} {name}{dims} = {{")
-        flat = [str(int(v)) + ("u" if ctype == "uint32_t" else "")
-                for v in a.ravel()]
-        per = 16 if ctype == "uint8_t" else 6
-        out += ["    " + ", ".join(flat[i:i + per]) + ","
-                for i in range(0, len(flat), per)]
-        out += ["};", ""]
-    return "\n".join(out)
-
-
-def write_header() -> None:
-    HEADER.write_text(header_source())
-
-
-if __name__ == "__main__":
-    write_header()

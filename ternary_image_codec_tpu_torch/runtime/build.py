@@ -43,19 +43,17 @@ def _sources(name: str):
 
 
 @functools.cache
-def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``.  ``defines`` are extra
-    ``-D`` macros: a variant builds beside the default under its own hash."""
-    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
     h = hashlib.sha256()
     for p in _sources(name):
         h.update(p.read_bytes())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp.so"
-        cmd = [nvcc_path(), *flags, "-o", str(tmp),
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:

@@ -1,6 +1,7 @@
-"""A numpy model of the K2 kernel (csrc/rs_correct.cu), built from the bytes
-it compiles in (csrc/rs_tables.cuh), held against the port's twin
-``rs.correct_pm_ref`` and the JAX package's ``rs.decode_dig``.
+"""A numpy model of the K2 kernel (csrc/rs_correct.cu), built from the arrays
+it compiles in (csrc/rs_tables.cuh, written by ``ops/rs_tables.py``), held
+against the port's twin ``rs.correct_pm_ref`` and the JAX package's
+``rs.decode_dig``.
 
 The model does what each thread of the kernel does, step for step: the
 78 digits of its codeword packed 4 to a 32-bit word; the syndrome digits as
@@ -9,39 +10,24 @@ mod 3 per digit; the clean-warp exit (a warp of 32 codewords whose every
 syndrome is zero, lanes past B counted clean, returns its input's data);
 then, for the other warps, the inversionless BM on the GF(27) tables of
 the image, Chien, Omega and Forney at the roots, the correction added byte
-by byte into the packed word with a byte-wise mod 3, and the recheck by
-S2 again.  Tolerance: zero, ok flags and data on every codeword.
+by byte into the packed word's digits mod 3 with a byte-wise mod 3, and
+the recheck by S2 again.  Tolerance: zero, ok flags and data on every codeword.
 """
-import re
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from ternary_image_codec_tpu.ops import rs as jrs
-from ternary_image_codec_tpu_torch.ops import gf27, rs, rs_cuda
+from ternary_image_codec_tpu_torch.ops import gf27, rs, rs_tables
 
 N = 26
 KS = (18, 20, 22, 24)
 WARP = 32
 
 
-def _header_arrays():
-    """Every constant array of the committed header, as the kernel sees it."""
-    text = rs_cuda.HEADER.read_text()
-    found = {}
-    pat = (r"(__device__|__constant__) __align__\(16\) const (uint8_t|uint32_t)"
-           r" (\w+)((?:\[\d+\])+) = \{(.*?)\};")
-    for _, ctype, name, dims, body in re.findall(pat, text, re.S):
-        shape = tuple(int(d) for d in re.findall(r"\d+", dims))
-        vals = [int(v) for v in re.findall(r"\d+", body)]
-        found[name] = np.array(vals, dtype=np.uint64).astype(
-            np.uint8 if ctype == "uint8_t" else np.uint32).reshape(shape)
-    return found
-
-
-HDR = _header_arrays()
+# the constants the kernel compiles in (test_header_is_generated)
+HDR = {name: a for name, (_, _, a) in rs_tables.header_arrays().items()}
 
 
 def _bytes(words):
@@ -59,10 +45,22 @@ def _dp4a_mod3(words, rows):
 
 
 def _mod3_bytes(w):
-    """The kernel's byte-wise mod 3 of words whose bytes are 0..4."""
+    """The kernel's byte-wise mod 3 of words whose bytes are 0..5."""
     w = w.astype(np.uint32)
     return w - np.uint32(3) * (((w + np.uint32(0x01010101)) >> np.uint32(2))
                                & np.uint32(0x01010101))
+
+
+def _mod3_digits(w):
+    """The kernel's mod 3 of words of four int8 digits: nibble sums, 2-bit
+    sums, then ``_mod3_bytes``."""
+    w = w.astype(np.uint32)
+    u = lambda c: np.uint32(c)
+    a = (w & u(0x0F0F0F0F)) + ((w >> u(4)) & u(0x0F0F0F0F)) \
+        + ((w >> u(6)) & u(0x02020202))
+    a = (a & u(0x03030303)) + ((a >> u(2)) & u(0x0F0F0F0F))
+    a = (a & u(0x03030303)) + ((a >> u(2)) & u(0x03030303))
+    return _mod3_bytes(a)
 
 
 def _tables():
@@ -122,7 +120,7 @@ def kernel_model(recv_pm: np.ndarray, k: int):
         for j in range(r):
             for i in range(j + 1):
                 om[:, j] = add[om[:, j], mul[S[:, i], sig[:, j - i]]]
-        cb = fx[lanes].view(np.uint8).copy()                   # (n_l, 80)
+        cb = _mod3_digits(x[lanes]).view(np.uint8)             # (n_l, 80)
         for i in range(N):
             num = np.zeros(n_l, np.int64)
             for d in range(r):
@@ -159,7 +157,7 @@ def _recv(k, nerr, seed):
     return pm(data), pm(cw)
 
 
-def _mixed(k, B=320):
+def _mixed(k, B):
     """Errors per codeword: warps 0, 3, 6 .. clean; in the others codeword
     b carries b % (t + 2) errors, so clean, <= t and t + 1 all occur."""
     t = (N - k) // 2
@@ -179,26 +177,24 @@ def test_table_image_matches_field():
 
 
 @pytest.mark.parametrize("k", KS)
-def test_packed_maps_match_code_matrices(k):
+def test_packed_map_matches_code_matrices(k):
     """Row q of kS2, unpacked, is row q of _matrices_pm(k)'s S2 over the
-    plane-major digits, zero-padded to whole words."""
+    plane-major digits; the padding (rows past 3r, bytes past 78) is zero."""
     r = N - k
-    M = rs._matrices_pm(k)
-    for name, key, rows in (("kS2", "S2", 3 * r),):
-        want = M[key].reshape(rows, -1)
-        got = _bytes(HDR[name][r // 2 - 1]).reshape(HDR[name].shape[1], -1)
-        assert np.array_equal(got[:rows, :want.shape[1]], want), name
-        assert not got[:rows, want.shape[1]:].any() and not got[rows:].any()
+    got = _bytes(HDR["kS2"][r // 2 - 1]).reshape(24, 80)
+    assert np.array_equal(got[:3 * r, :78],
+                          rs._matrices_pm(k)["S2"].reshape(3 * r, 78))
+    assert not got[:3 * r, 78:].any() and not got[3 * r:].any()
 
 
 def test_header_is_generated():
-    """The committed header is what rs_cuda.header_source() writes now."""
-    assert rs_cuda.HEADER.read_text() == rs_cuda.header_source()
+    """The committed header is what rs_tables.header_source() writes now."""
+    assert rs_tables.HEADER.read_text() == rs_tables.header_source()
 
 
 def test_dp4a_syndromes_match_twin():
     """dp4a sums with one mod 3 give the twin's syndrome digits, on
-    random digits too (not only codewords near a codeword)."""
+    random digits too (not only received words near a codeword)."""
     rng = np.random.default_rng(11)
     for k in KS:
         r = N - k
@@ -216,6 +212,18 @@ def test_mod3_bytes():
     w = (digs << np.array([0, 8, 16, 24])).sum(1).astype(np.uint32)
     got = _bytes(_mod3_bytes(w)[:, None]).reshape(-1, 4)
     assert np.array_equal(got, digs % 3)
+
+
+def test_mod3_digits():
+    """Every int8 value in every byte of a word, and random words: each
+    byte becomes its digit mod 3."""
+    v = np.arange(256, dtype=np.uint32)
+    words = np.concatenate([v << np.uint32(8 * j) for j in range(4)]
+                           + [np.random.default_rng(5).integers(
+                               0, 2 ** 32, 4096, dtype=np.uint32)])
+    got = _bytes(_mod3_digits(words)[:, None]).reshape(-1, 4)
+    assert np.array_equal(got, _bytes(words[:, None]).view(np.int8)
+                          .reshape(-1, 4).astype(np.int64) % 3)
 
 
 @pytest.mark.parametrize("k", KS)
@@ -265,7 +273,31 @@ def test_clean_warp_exit_on_the_fused_window():
 
 def test_all_clean_input_never_repairs():
     """Every warp clean: the model's exit returns the input's data."""
-    data, recv = _recv(20, np.zeros(256, np.int64), seed=3)
+    _, recv = _recv(20, np.zeros(256, np.int64), seed=3)
     got, got_ok, clean = kernel_model(recv, 20)
     assert clean.all() and got_ok.all()
     assert np.array_equal(got, recv[:, :20])
+
+
+@pytest.mark.parametrize("k", KS)
+def test_model_matches_twin_on_digits_out_of_range(k):
+    """Digits outside 0..2 count as their value mod 3, as in the twin (the
+    port's contract; the JAX package's decode_dig takes digits 0..2):
+    received words near codewords with every digit moved by a multiple of
+    3 (clean warps among them, which return their input as it is), and
+    random int8 digits over all 256 values (failed blocks, mostly)."""
+    rng = np.random.default_rng(70 + k)
+    nerr = _mixed(k, 320)
+    data, recv = _recv(k, nerr, seed=80 + k)
+    moved = (recv + 3 * rng.integers(-42, 42, recv.shape)).astype(np.int8)
+    noise = rng.integers(-128, 128, (3, N, 320)).astype(np.int8)
+    noise.reshape(-1)[:256] = np.arange(-128, 128)
+    within = nerr <= (N - k) // 2
+    for recv in (moved, noise):
+        got, got_ok, _ = kernel_model(recv, k)
+        want, want_ok = rs.correct_pm_ref(torch.as_tensor(recv), k)
+        assert np.array_equal(got_ok, want_ok.numpy())
+        assert np.array_equal(got, want.numpy())
+    got, got_ok, _ = kernel_model(moved, k)
+    assert got_ok[within].all()
+    assert np.array_equal(got[:, :, within] % 3, data[:, :, within])
