@@ -7,7 +7,8 @@ Run from the repository root with no arguments:
 Phases, one output line each:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: both CUDA kernels from ``ternary_image_codec_tpu_torch/csrc``;
+2. build: both CUDA kernels from ``ternary_image_codec_tpu_torch/csrc``
+   and the native host library (``runtime/src/t3native.cpp``);
 3. K2 (RS correction chain) against its plain torch twin on the card, bit
    for bit on every block, for k in {18, 20, 22, 24}: 262,144 codewords
    each (a third with <= t errors, a third with t+1, the rest clean), again
@@ -52,13 +53,27 @@ Phases, one output line each:
    frames-batched decode is held equal to two fused decodes; K2 timed on
    the damaged full decode's inputs (k=22, k=20 and the k=18 header
    chain), K1 on the frames-batched decode's 4,050 superframes; ingest,
-   egress, e2e, full, none and frames-batched dirty decode ms per frame.
+   egress, e2e, full, none and frames-batched dirty decode ms per frame;
+7. the serve path at full size: the native CRC library must build; 4
+   seeded 8K frames (pinned host memory) through ``StreamExecutor``
+   (prefetch 2): H2D, ``enc_serve`` (encode and base-243 wire pack), D2H
+   and the T3V6 writer (CRC, file write) into a temporary file of ~450 MB,
+   then read back behind a security policy that admits the domain (gated
+   read and CRC check into pinned memory, H2D, ``dec_serve``: unpack, K1
+   check decode, checksums); every frame ok with the encode's wire
+   checksum, frame 0 decoded exactly and its file bytes equal to
+   ``np_pack_wire`` of its wire planes, a flipped payload byte raises the
+   CRC error, a denying policy raises before any payload byte is read; K1
+   launched once a frame and K2 never, every K1 input held bit-equal to
+   the twin; a second, warm pass; ms per frame of both directions and
+   their split into device, H2D, D2H (CUDA events), CRC and file IO (host
+   clock).
 
 Then a JSON line with each kernel's numbers (``device_ms`` is the
 CUDA-graph time; ``at_path_sizes`` holds the times at the path's own
 sizes, the full strategy's and the frames-batched decode's among them;
 ``launches`` counts phase 5's stream, ``launches_pixel_path`` phase 6's
-run), the
+run, ``launches_serve`` phase 7's first pass), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
 Tolerance everywhere: zero (the codec is integer arithmetic).
@@ -90,6 +105,9 @@ K1_RANDOM_SF = 300
 K1_P1_SF = 1001        # second layout's count, no multiple of the grid
 K1_BIG_WORDS = 16384   # a superframe too large for K1's shared-memory stage
 K1_BIG_SF = 300        # more superframes than the kernel's persistent grid
+SERVE_FRAMES = 4       # frames through the serve path's T3V6 file
+SERVE_PREFETCH = 2     # executor queue depth
+SERVE_META = '{"domain":"acme/video/serve","build_hash":"ab12"}'
 # H100 SXM peaks (NVIDIA data sheet, 700 W): device memory, int8 tensor cores
 HBM_BPS = 3.35e12
 INT8_TC_OPS = 1979e12
@@ -163,14 +181,18 @@ def phase_device(torch):
 
 
 def phase_build():
-    """Both kernels at once: one nvcc process per source."""
+    """Both kernels and the native host library at once: one nvcc process
+    per kernel source, g++ for ``runtime/src/t3native.cpp``."""
     from concurrent.futures import ThreadPoolExecutor
-    from ternary_image_codec_tpu_torch.runtime import build
+    from ternary_image_codec_tpu_torch.runtime import build, native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
+        host = pool.submit(native.available)
         list(pool.map(build.load, ("check_decode", "rs_correct")))
-    print(f"[2 build] check_decode.cu, rs_correct.cu with nvcc for sm_90a, "
-          f"in parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+        require(host.result(), "g++ did not build runtime/src/t3native.cpp")
+    print(f"[2 build] check_decode.cu, rs_correct.cu with nvcc for sm_90a "
+          f"and t3native.cpp with g++, in parallel: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _k2_codewords(torch, k, nerr, rng):
@@ -840,6 +862,319 @@ def phase_pixel(torch, dev, cfg):
     return launches, at_sizes, times
 
 
+
+def serve_frames(torch, cfg, n_raw, n_frames, dev, seed=6):
+    """``n_frames`` seeded frames of ``n_raw`` RAW words as (n_sf, sf, 9)
+    int8 chunks (the tail zero-padded, trit 26 of every word zero), made
+    on ``dev`` and handed over in host memory, pinned when ``dev`` is a
+    card: what a capture process gives the serve encoder."""
+    sf = cfg.superframe_words
+    n_sf = -(-n_raw // sf)
+    out = []
+    for i in range(n_frames):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        raw = torch.randint(0, 27, (n_raw, 9), generator=g, device=dev,
+                            dtype=torch.int8)
+        raw[:, 8] %= 9
+        chunks = torch.nn.functional.pad(raw, (0, 0, 0, n_sf * sf - n_raw))
+        host = torch.empty(chunks.shape, dtype=torch.int8,
+                           pin_memory=dev.type == "cuda")
+        out.append(host.copy_(chunks).view(n_sf, sf, 9))
+    return out
+
+
+@contextlib.contextmanager
+def timed_crc(split):
+    """Inside the block, every container CRC of the serve module adds its
+    host ms to ``split["crc"]``."""
+    from ternary_image_codec_tpu_torch.io import serve
+    crc = serve._crc32
+
+    def timed(data, init=0):
+        t0 = time.perf_counter()
+        out = crc(data, init)
+        split["crc"] += (time.perf_counter() - t0) * 1e3
+        return out
+    serve._crc32 = timed
+    try:
+        yield
+    finally:
+        serve._crc32 = crc
+
+
+@contextlib.contextmanager
+def _span(torch, spans, key):
+    """CUDA timing events around the block on the current stream, kept in
+    ``spans`` as (key, start, end); nothing when ``spans`` is None (a run
+    on the CPU)."""
+    if spans is None:
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    end.record()
+    spans.append((key, start, end))
+
+
+def _span_ms(torch, spans, split):
+    """Device ms of the kept spans, summed by key into ``split``."""
+    if spans:
+        torch.cuda.synchronize()
+    for key, start, end in spans or ():
+        split[key] = split.get(key, 0.0) + start.elapsed_time(end)
+    return split
+
+
+def serve_write(torch, cfg, n_raw, frames, path, dev, w=W8K, h=H8K):
+    """The serve loop's write direction through ``StreamExecutor``
+    (``prefetch`` 2): per frame, H2D of the host chunks on the loader's
+    stream, ``enc_serve`` (encode and wire pack) dispatched on the caller's,
+    D2H of the packed bytes into one pinned buffer on the writer's, then
+    the T3V6 writer (CRC and file write) straight from that buffer.
+    Returns (wire checksums per frame, ms split: h2d, device, d2h (device
+    time by CUDA events), crc, io (host clock), wall ms of the loop with
+    the file's close)."""
+    from ternary_image_codec_tpu_torch.io import serve
+    from ternary_image_codec_tpu_torch.runtime.executor import StreamExecutor
+    enc, _dec, geom = serve.serve_codec_fns(cfg, n_raw, device=dev)
+    cuda = dev.type == "cuda"
+    host = torch.empty((geom["n_sf"], geom["sf_bytes"]), dtype=torch.uint8,
+                       pin_memory=cuda)
+    cks, spans = [None] * len(frames), [] if cuda else None
+    split = {"crc": 0.0, "write_frame": 0.0}
+
+    def load(i):
+        with _span(torch, spans, "h2d"):
+            return i, frames[i].to(dev, non_blocking=True)
+
+    def device_fn(x):
+        i, chunks = x
+        with _span(torch, spans, "device"):
+            by, ck = enc(chunks)
+        return i, by, ck
+
+    def write(_index, y):
+        i, by, ck = y
+        with _span(torch, spans, "d2h"):
+            host.copy_(by, non_blocking=cuda)
+        if cuda:
+            torch.cuda.current_stream(dev).synchronize()   # this stream only
+        cks[i] = int(ck)
+        t0 = time.perf_counter()
+        wtr.write_frame(i, host.numpy())
+        split["write_frame"] += (time.perf_counter() - t0) * 1e3
+
+    with timed_crc(split):
+        t0 = time.perf_counter()
+        wtr = serve.T3V6StreamWriter(
+            path, cfg.subword, w, h, len(frames), geom["frame_bytes"],
+            meta_global=serve.serve_meta_global(cfg, n_raw, w, h),
+            meta_per_frame=SERVE_META)
+        with wtr:
+            StreamExecutor(load, device_fn, write, SERVE_PREFETCH,
+                           device=dev).run(range(len(frames)))
+        wall = (time.perf_counter() - t0) * 1e3
+    split["io"] = split.pop("write_frame") - split["crc"]
+    return cks, _span_ms(torch, spans, split), wall
+
+
+def serve_read(torch, cfg, n_raw, path, dev, approve):
+    """The serve loop's read direction through ``StreamExecutor``
+    (``prefetch`` 2): per frame, the gated read of its payload (``approve``
+    sees the meta first) and the CRC check into a pinned buffer, H2D on
+    the loader's stream, ``dec_serve`` (unpack, K1 check decode,
+    checksums) on the caller's, the three results read on the writer's.
+    Returns ({frame: (ok, wire checksum, out checksum)}, ms split: h2d,
+    device (CUDA events), crc, io (host clock), wall ms of the loop)."""
+    from ternary_image_codec_tpu_torch.io import serve
+    from ternary_image_codec_tpu_torch.runtime.executor import StreamExecutor
+    _enc, dec, geom = serve.serve_codec_fns(cfg, n_raw, device=dev)
+    n_sf, nb = geom["n_sf"], geom["sf_bytes"]
+    cuda = dev.type == "cuda"
+    results, spans = {}, [] if cuda else None
+    split = {"crc": 0.0, "read": 0.0}
+
+    def load(i):
+        buf = torch.empty(geom["frame_bytes"], dtype=torch.uint8,
+                          pin_memory=cuda)
+        t0 = time.perf_counter()
+        rd.read_frame_into(i, buf.numpy())
+        split["read"] += (time.perf_counter() - t0) * 1e3
+        with _span(torch, spans, "h2d"):
+            return i, buf[:n_sf * nb].view(n_sf, nb).to(dev,
+                                                         non_blocking=True)
+
+    def device_fn(x):
+        i, by = x
+        with _span(torch, spans, "device"):
+            ok, wck, ock = dec(by)
+        return i, ok, wck, ock
+
+    def write(_index, y):
+        i, ok, wck, ock = y
+        results[i] = (bool(ok), int(wck), int(ock))
+
+    with timed_crc(split):
+        t0 = time.perf_counter()
+        with serve.T3V6StreamReader(path, approve_meta=approve) as rd:
+            StreamExecutor(load, device_fn, write, SERVE_PREFETCH,
+                           device=dev).run(range(rd.frame_count))
+        wall = (time.perf_counter() - t0) * 1e3
+    split["io"] = split.pop("read") - split["crc"]
+    return results, _span_ms(torch, spans, split), wall
+
+
+def serve_checks(torch, cfg, n_raw, frames, path, dev, cks, results):
+    """What the serve loop must show (tier-1 holds the same helpers on the
+    CPU): every frame ok with the encode's wire checksum; frame 0 decoded
+    exactly from the file's bytes, which equal ``np_pack_wire`` of its wire
+    planes (zero padding after them); one flipped payload byte raises the
+    CRC error; a denying policy raises "not approved" with the file still
+    at the payload's first byte and the buffer untouched.  Returns the
+    check decode's out checksum of frame 0."""
+    from ternary_image_codec_tpu_torch.codec import codec_for
+    from ternary_image_codec_tpu_torch.io import serve
+    from ternary_image_codec_tpu_torch.io.containers import ContainerError
+    from ternary_image_codec_tpu_torch.ops import wirepack
+    from ternary_image_codec_tpu_torch.security import policy
+    _enc, dec, geom = serve.serve_codec_fns(cfg, n_raw, device=dev)
+    n_sf, nb, sf = geom["n_sf"], geom["sf_bytes"], cfg.superframe_words
+    require(sorted(results) == list(range(len(frames))),
+            f"serve read: frames {sorted(results)} of {len(frames)}")
+    for i, (ok, wck, _ock) in sorted(results.items()):
+        require(ok, f"serve frame {i}: ok is False")
+        require(wck == cks[i], f"serve frame {i}: wire checksum {wck} after "
+                f"unpack, {cks[i]} at encode")
+    with serve.T3V6StreamReader(path) as rd:
+        pay = rd.read_frame_bytes(0)
+        off = rd.index[1].offset + rd.index[1].meta_len + nb * (n_sf // 2)
+    require(len(pay) == geom["frame_bytes"]
+            and not any(pay[n_sf * nb:]), "frame 0: payload size or padding")
+    by = torch.frombuffer(bytearray(pay[:n_sf * nb]), dtype=torch.uint8) \
+        .view(n_sf, nb)
+    codec = codec_for(cfg, dev)
+    chunks = frames[0].to(dev)
+    planes = codec.encode(chunks, 128)
+    got = wirepack.unpack_wire(by.to(dev), geom["total_words"])
+    require(torch.equal(got, planes), "frame 0: unpacked wire planes differ "
+            "from the encoder's")
+    out, ok = codec.check(got)
+    require(bool(ok.all()) and torch.equal(out[:, :, :sf].transpose(1, 2),
+                                           chunks),
+            "frame 0: decoded RAW words differ from the source")
+    planes = planes.cpu().numpy()
+    by = by.numpy()
+    for a in range(0, n_sf, 128):
+        require(np.array_equal(by[a:a + 128],
+                               wirepack.np_pack_wire(planes[a:a + 128])),
+                f"frame 0: file bytes of superframes {a}.. differ from "
+                "np_pack_wire")
+    with open(path, "r+b") as f:                      # one payload byte
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+    buf = np.empty(geom["frame_bytes"], dtype=np.uint8)
+    try:
+        with serve.T3V6StreamReader(path) as rd:
+            rd.read_frame_into(1, buf)
+        raise SmokeFailure("a flipped payload byte read back without error")
+    except ContainerError as e:
+        require("crc" in str(e), f"flipped payload byte: {e}")
+    finally:
+        with open(path, "r+b") as f:
+            f.seek(off)
+            f.write(b)
+    pol = policy.Policy(memberships=[policy.Membership("other/")])
+    seen = []
+    deny = policy.t3v_approve_with_policy(pol)
+    buf.fill(0xAB)
+    with serve.T3V6StreamReader(
+            path, approve_meta=lambda m: seen.append(m) or deny(m)) as rd:
+        try:
+            rd.read_frame_into(2, buf)
+            raise SmokeFailure("a denying policy read the payload")
+        except ContainerError as e:
+            require("not approved" in str(e), f"denied read: {e}")
+        at = rd._f.tell()
+        fi = rd.index[2]
+    require(seen == [SERVE_META] and at == fi.offset + fi.meta_len
+            and (buf == 0xAB).all(),
+            f"denied read: approve saw {seen}, file at {at} (payload at "
+            f"{fi.offset + fi.meta_len}), buffer touched")
+    return int(serve.checksum(out))
+
+
+def phase_serve(torch, dev, cfg):
+    """The serve path at full size: 4 seeded 8K frames encoded, packed and
+    written to a T3V6 file through the executor, then read back behind a
+    policy that admits the domain, unpacked and check-decoded (K1); the
+    checks of ``serve_checks``; every K1 input of the run held bit-equal to
+    the twin; a second, warm pass of both directions.  Returns (launches
+    in the first pass, times)."""
+    import os
+    import tempfile
+    from ternary_image_codec_tpu_torch.codec import codec_for
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    from ternary_image_codec_tpu_torch.runtime import native
+    from ternary_image_codec_tpu_torch.security import policy
+    require(native.available(), "the native CRC library did not build: "
+            "the serve path would time zlib's CRC")
+    n_raw = W8K * H8K // 2
+    frames = serve_frames(torch, cfg, n_raw, SERVE_FRAMES, dev)
+    admit = policy.t3v_approve_with_policy(
+        policy.Policy(memberships=[policy.Membership("acme/")]))
+    k1_in, k2_in = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "serve.t3v")
+        dec_cuda.launches = 0
+        rs_cuda.launches = 0
+        with kept_inputs(k1_in, k2_in):
+            cks, wsplit, wms = serve_write(torch, cfg, n_raw, frames, path, dev)
+            res, rsplit, rms = serve_read(torch, cfg, n_raw, path, dev, admit)
+        launches = {"check_decode": dec_cuda.launches,
+                    "rs_correct": rs_cuda.launches}
+        require(launches == {"check_decode": SERVE_FRAMES, "rs_correct": 0}
+                and len(k1_in) == SERVE_FRAMES and not k2_in,
+                f"serve launches {launches}, {len(k1_in)} K1 inputs kept: "
+                f"one K1 launch a frame and no K2 expected")
+        ock0 = serve_checks(torch, cfg, n_raw, frames, path, dev, cks, res)
+        require(res[0][2] == ock0, "frame 0: out checksum of the serve loop "
+                "differs from the direct decode's")
+        codec = codec_for(cfg, dev)
+        for body, layout in k1_in:
+            require(layout is codec.dlayout, "K1 ran on another layout")
+            _k1_equal(torch, body, codec, f"serve n_sf={body.shape[0]}")
+        del k1_in
+        mb = os.path.getsize(path) / 1e6
+        cks2, wsplit2, wms2 = serve_write(torch, cfg, n_raw, frames, path, dev)
+        res2, rsplit2, rms2 = serve_read(torch, cfg, n_raw, path, dev, admit)
+        require(cks2 == cks and res2 == res, "warm serve pass differs")
+    n = SERVE_FRAMES
+    per = lambda d: {k: round(v / n, 3) for k, v in d.items()}
+    times = {"write ms/frame": wms / n, "read ms/frame": rms / n,
+             "write ms/frame warm": wms2 / n, "read ms/frame warm": rms2 / n,
+             "write split ms/frame": per(wsplit),
+             "read split ms/frame": per(rsplit),
+             "write split ms/frame warm": per(wsplit2),
+             "read split ms/frame warm": per(rsplit2)}
+    print(f"[7 serve path, {n} 8K frames through a T3V6 file of {mb:.1f} MB "
+          f"({SERVE_PREFETCH}-deep executor)] every frame ok, wire checksums "
+          f"equal after unpack, frame 0 exact and its file bytes equal to "
+          f"np_pack_wire, flipped payload byte raised the CRC error, denying "
+          f"policy raised before any payload byte, native CRC in use; K1 "
+          f"launches {launches['check_decode']} (K2 {launches['rs_correct']}), "
+          f"every K1 input bit-equal to plain", flush=True)
+    print(f"[7 serve times] first pass: write {wms / n:.1f} ms/frame "
+          f"(split {per(wsplit)}), read {rms / n:.1f} ms/frame (split "
+          f"{per(rsplit)}); warm: write {wms2 / n:.1f} ms/frame (split "
+          f"{per(wsplit2)}), read {rms2 / n:.1f} ms/frame (split "
+          f"{per(rsplit2)}); device, h2d and d2h by CUDA events on their "
+          f"streams, crc and io by the host clock", flush=True)
+    return launches, times
+
 def main():
     import torch
     name, smi_line = phase_device(torch)
@@ -855,6 +1190,7 @@ def main():
     k1 = phase_k1(torch, dev, codec, n_sf)
     launches, real = phase_main(torch, dev, cfg)
     launches_px, at_sizes, _times = phase_pixel(torch, dev, cfg)
+    launches_sv, _serve_times = phase_serve(torch, dev, cfg)
     k2.update(at_sizes["rs_correct"])
     k2_big = k2[f"k=22 B={K2_BLOCKS}"]
     t = dict(real["times"])
@@ -866,6 +1202,7 @@ def main():
          "replaces": "ternary_image_codec_tpu/ops/dec_pallas.py:116",
          "launches": launches["check_decode"],
          "launches_pixel_path": launches_px["check_decode"],
+         "launches_serve": launches_sv["check_decode"],
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -876,6 +1213,7 @@ def main():
          "replaces": "ternary_image_codec_tpu/ops/rs_pallas.py:199",
          "launches": launches["rs_correct"],
          "launches_pixel_path": launches_px["rs_correct"],
+         "launches_serve": launches_sv["rs_correct"],
          "max_abs_err": k2_err,
          "ms": k2_big["ms"], "device_ms": k2_big["device_ms"],
          "plain_ms": k2_big["plain_ms"], "bound_ms": k2_big["bound_ms"],

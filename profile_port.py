@@ -12,17 +12,25 @@ values, and decode under each strategy, clean and under ``bench.py``'s
 damage model; then the pixel path on the ``chip_smoke.py`` RGB frame:
 ``ingest9_planes``, ``egress9_planes``, the e2e roundtrip (``feed`` and
 ``fold``), and the frames-batched fused decode of two damaged frames in
-one call.  Then ``torch.profiler`` tables (self device time by op) for
-encode, the fused and full dirty decodes and the e2e roundtrip, with the
-device busy share of each: the device time of all its kernels over the
-median host time of the same stage with the profiler off.
+one call; then the serve path (``io/serve.py``): ``pack_wire`` and
+``unpack_wire`` of one frame, ``enc_serve`` and ``dec_serve`` of one
+frame, and ``chip_smoke.py``'s serve loop, write and read, over its 4
+frames and a T3V6 file in a temporary directory (ms per frame; the file
+is read back from the page cache).  Then ``torch.profiler`` tables (self
+device time by op) for encode, the fused and full dirty decodes, the e2e
+roundtrip, ``enc_serve`` and ``dec_serve``, with the device busy share of
+each: the device time of all its kernels over the median host time of the
+same stage with the profiler off.
 """
+import os
+import tempfile
 import time
 
 import numpy as np
 
-from chip_smoke import (H8K, REPAIR_CAP, SF_BATCH, W8K, damaged,
-                        pixel_roundtrip, rgb_frame, wall_ms)
+from chip_smoke import (H8K, REPAIR_CAP, SERVE_FRAMES, SF_BATCH, W8K,
+                        damaged, pixel_roundtrip, rgb_frame, serve_frames,
+                        serve_read, serve_write, wall_ms)
 
 REPS = 5
 
@@ -85,6 +93,31 @@ def main():
                 lambda: port.decode_frames_fused(pair, cfg, sf_batch=SF_BATCH,
                                                  repair_cap=REPAIR_CAP))]
 
+    from ternary_image_codec_tpu_torch.io import serve
+    from ternary_image_codec_tpu_torch.ops import wirepack
+    from ternary_image_codec_tpu_torch.security import policy
+    enc_serve, dec_serve, geom = serve.serve_codec_fns(cfg, n_raw, device=dev)
+    frames = serve_frames(torch, cfg, n_raw, SERVE_FRAMES, dev)
+    chunks = frames[0].to(dev)
+    serve_planes = port.SuperframeCodec(cfg, device=dev).encode(chunks, 128)
+    serve_by = enc_serve(chunks)[0]
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "serve.t3v")
+    admit = policy.t3v_approve_with_policy(
+        policy.Policy(memberships=[policy.Membership("acme/")]))
+    serve_write(torch, cfg, n_raw, frames, path, dev)
+    stages += [
+        ("pack_wire", lambda: wirepack.pack_wire(serve_planes)),
+        ("unpack_wire", lambda: wirepack.unpack_wire(
+            serve_by, geom["total_words"])),
+        ("enc_serve (encode, pack, checksum)", lambda: enc_serve(chunks)),
+        ("dec_serve (unpack, K1 check, checksums)",
+         lambda: dec_serve(serve_by)),
+        (f"serve write, {SERVE_FRAMES} frames a call",
+         lambda: serve_write(torch, cfg, n_raw, frames, path, dev)),
+        (f"serve read, {SERVE_FRAMES} frames a call",
+         lambda: serve_read(torch, cfg, n_raw, path, dev, admit))]
+
     lines = [f"one 8K frame: {n_raw} RAW words, {n_sf} superframes; "
              f"{torch.cuda.get_device_name(0)}; host ms over {REPS} "
              f"warm repetitions"]
@@ -97,7 +130,11 @@ def main():
     for name, fn in ((stages[0][0], stages[0][1]),
                      ("decode fused, dirty", dec(dirty, "fused")),
                      ("decode full, dirty", dec(dirty, "full")),
-                     ("e2e roundtrip (feed, fold)", e2e)):
+                     ("e2e roundtrip (feed, fold)", e2e),
+                     ("enc_serve (encode, pack, checksum)",
+                      lambda: enc_serve(chunks)),
+                     ("dec_serve (unpack, K1 check, checksums)",
+                      lambda: dec_serve(serve_by))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -116,6 +153,7 @@ def main():
                      f"{median[name]:.2f} ms without; busy share "
                      f"{busy / median[name]:.3f}")
         lines.append(events.table(sort_by=key, row_limit=15))
+    tmp.cleanup()
     print("\n".join(lines), flush=True)
 
 

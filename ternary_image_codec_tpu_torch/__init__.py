@@ -5,7 +5,8 @@ imports torch and numpy, never jax and nothing of the JAX package (its
 ``config`` is a copy of the reference's).  The entry points run on the
 CUDA card unless the caller passes ``device="cpu"``.  See ops/pipeline.py
 for the stream and the profile API, ops/wordcodec.py and io/image.py for
-the pixel bridge.
+the pixel bridge, io/serve.py for the serve path (T3V6 containers on disk,
+the base-243 wire pack, the approval gate, the pipelined executor).
 """
 from .config import (EncoderConfig, ProfileID, ScramblerSeed,
                      SuperframeHeader, uep_luma_priority, uep_uniform)

@@ -12,7 +12,7 @@ import torch
 
 import ternary_image_codec_tpu_torch as port
 from ternary_image_codec_tpu_torch.codec import codec_for, resolve_device
-from ternary_image_codec_tpu_torch.io import image
+from ternary_image_codec_tpu_torch.io import image, serve
 from ternary_image_codec_tpu_torch.ops import pipeline, rs_cuda
 
 CFG = port.EncoderConfig(profile=port.ProfileID.P2_RS26_22,
@@ -54,6 +54,8 @@ def _calls():
         "decode_header_from_words": lambda: port.decode_header_from_words(
             profile),
         "rgb_to_words": lambda: image.rgb_to_words(rgb, S15, False),
+        "serve_codec_fns": lambda: serve.serve_codec_fns(CFG, len(raw))[0](
+            torch.as_tensor(chunks)),
         "words_to_rgb": lambda: image.words_to_rgb(
             np.zeros(64 * 48, dtype=np.int32), S15, 64, 48),
     }
@@ -63,7 +65,7 @@ ENTRIES = ["SuperframeCodec", "codec_for", "decode_frames_fused",
            "decode_header_from_words", "decode_profile_to_raw",
            "decode_stream_superframes", "encode_profile_from_raw",
            "encode_stream_superframes", "rgb_to_words", "roundtrip_stream",
-           "tables_from_reference", "words_to_rgb"]
+           "serve_codec_fns", "tables_from_reference", "words_to_rgb"]
 
 
 def test_every_entry_point_listed():

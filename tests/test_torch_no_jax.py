@@ -21,7 +21,10 @@ def _submodules():
 def test_import_leaves_jax_out():
     mods = _submodules()
     for name in ("ops.dec_cuda", "ops.trits", "ops.subword", "ops.quant",
-                 "ops.wordcodec", "io.image"):
+                 "ops.wordcodec", "io.image", "io.serve", "io.containers",
+                 "io.legacy_containers", "ops.wirepack", "security.policy",
+                 "security.route", "runtime.executor", "runtime.native",
+                 "runtime.tracing"):
         assert f"ternary_image_codec_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,3 +53,17 @@ def test_no_jax_import_in_source(path):
     for name in _imports(path):
         assert name != "jax" and not name.startswith("jax."), name
         assert name != REF and not name.startswith(REF + "."), name
+
+
+def test_native_library_is_the_ports_own():
+    """The port builds its own copy of t3native.cpp into the repository's
+    build directory and never opens the JAX package's library."""
+    from ternary_image_codec_tpu_torch.runtime import native
+    ref = (ROOT / REF).resolve()
+    paths = {"source": native.SRC, "build dir": native.BUILD_DIR,
+             "library": native.so_path()}
+    for what, path in paths.items():
+        assert ref not in path.resolve().parents, (what, path)
+    assert PKG.resolve() in native.SRC.resolve().parents
+    assert native.SRC.is_file()
+    assert native.BUILD_DIR.resolve() == (ROOT / "build" / "t3native").resolve()
