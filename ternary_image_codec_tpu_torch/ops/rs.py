@@ -264,6 +264,22 @@ def decode_dig(recv_dig: torch.Tensor, k: int, maps=None):
     return data_pm.permute(2, 1, 0), ok
 
 
+def encode(data: torch.Tensor, k: int) -> torch.Tensor:
+    """Symbol-domain encode on the tensor's device: (..., k) GF(27)
+    symbols -> (..., 26) int8 codewords."""
+    lead = data.shape[:-1]
+    pm = gf27.sym_to_dig(data.reshape(-1, k), dim=0).transpose(1, 2)
+    cw = encode_pm(pm, k)                                    # (3, 26, B)
+    return gf27.dig_to_sym(cw, dim=0).T.reshape(*lead, N)
+
+
+def decode(recv: torch.Tensor, k: int):
+    """Symbol-domain decode: (B, 26) received symbols -> (data (B, k) int8,
+    ok (B,)); the correction is ``correct_pm``'s (K2 on the card)."""
+    data, ok = decode_dig(gf27.sym_to_dig(recv), k)
+    return gf27.dig_to_sym(data), ok
+
+
 # ---------------------------------------------------------------------------
 # page compaction
 # ---------------------------------------------------------------------------

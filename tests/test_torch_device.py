@@ -13,9 +13,11 @@ import pytest
 import torch
 
 import ternary_image_codec_tpu_torch as port
+from ternary_image_codec_tpu_torch import profiles
+from ternary_image_codec_tpu_torch.cli import demo_write_video, main_bare
 from ternary_image_codec_tpu_torch.codec import codec_for, resolve_device
-from ternary_image_codec_tpu_torch.io import image, serve
-from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline, rs_cuda
+from ternary_image_codec_tpu_torch.io import formats, image, serve, video
+from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline, proto, rs_cuda
 
 CFG = port.EncoderConfig(profile=port.ProfileID.P2_RS26_22,
                          uep=port.uep_luma_priority(), superframe_words=256)
@@ -28,8 +30,8 @@ def _raw(n_sf=2):
     return (t.reshape(-1, 9, 3) * np.array([1, 3, 9])).sum(-1).astype(np.int8)
 
 
-def _calls():
-    """Each entry point, called without a device."""
+def _calls(tmp):
+    """Each entry point, called without a device (files in ``tmp``)."""
     raw = _raw()
     chunks = raw.reshape(2, CFG.superframe_words, 9)
     words = port.encode_stream_superframes(torch.as_tensor(raw), CFG,
@@ -37,6 +39,13 @@ def _calls():
     profile = port.encode_profile_from_raw(raw[:1000], CFG, device="cpu")
     rgb = np.zeros((48, 64, 3), dtype=np.uint8)
     S15 = port.config.SubwordMode.S15
+    png = str(tmp / "in.png")
+    image.save_image_png(png, rgb)
+    words13 = np.zeros(64 * 48, dtype=np.int32)
+    pp, rp = proto.ProtoParams(), proto.AnisoRCParams()
+    art = proto.proto_aniso_rc_encode(rgb, rp, device="cpu")
+    haar = profiles.ProtoConfig(profile=profiles.ProtoProfile.HAAR_TERNARY)
+    vcfg = video.FFVideoConfig(width=64, height=48)
     return {
         "SuperframeCodec": lambda: port.SuperframeCodec(CFG),
         "codec_for": lambda: codec_for(CFG),
@@ -58,25 +67,68 @@ def _calls():
         "rgb_to_words": lambda: image.rgb_to_words(rgb, S15, False),
         "serve_codec_fns": lambda: serve.serve_codec_fns(CFG, len(raw))[0](
             torch.as_tensor(chunks)),
-        "words_to_rgb": lambda: image.words_to_rgb(
-            np.zeros(64 * 48, dtype=np.int32), S15, 64, 48),
+        "words_to_rgb": lambda: image.words_to_rgb(words13, S15, 64, 48),
+        "image_to_words_subword": lambda: image.image_to_words_subword(
+            png, S15, False),
+        "words_to_image_subword": lambda: image.words_to_image_subword(
+            words13, S15, 64, 48, str(tmp / "out.png")),
+        "image_file_to_words": lambda: formats.image_file_to_words(
+            png, "tiff", S15, False),
+        "words_to_image_file": lambda: formats.words_to_image_file(
+            words13, "tiff", S15, 64, 48, str(tmp / "out.tiff")),
+        "proto_tile_haar_ternary": lambda: proto.proto_tile_haar_ternary(
+            rgb, pp),
+        "proto_reconstruct_y_from_tiles":
+            lambda: proto.proto_reconstruct_y_from_tiles(
+                None, np.zeros(48 * 48, np.int8), 8, 6, pp),
+        "proto_spectral_sketch": lambda: proto.proto_spectral_sketch(rgb, pp),
+        "proto_aniso_rc_encode": lambda: proto.proto_aniso_rc_encode(rgb, rp),
+        "proto_aniso_rc_reconstruct":
+            lambda: proto.proto_aniso_rc_reconstruct(art, rp),
+        "encode_prototype_ternary": lambda: profiles.encode_prototype_ternary(
+            rgb, haar),
+        "FFVideoWriter": lambda: video.FFVideoWriter(),
+        "write_video_from_words_sequence":
+            lambda: video.write_video_from_words_sequence(
+                str(tmp / "v.mp4"), vcfg, [words13], S15, 64, 48),
+        "write_png_sequence_from_words":
+            lambda: video.write_png_sequence_from_words(
+                str(tmp / "seq"), [words13], S15, 64, 48),
+        "selftest_rs_unit": lambda: main_bare.selftest_rs_unit(),
+        "selftest_api_roundtrip": lambda: main_bare.selftest_api_roundtrip(),
+        "make_frames": lambda: demo_write_video.make_frames(16, 8, 1),
     }
 
 
-ENTRIES = ["SuperframeCodec", "codec_for", "decode_frames_fused",
-           "decode_header_from_words", "decode_profile_to_raw",
-           "decode_stream_superframes", "encode_profile_from_raw",
-           "encode_stream_superframes", "rgb_to_words", "roundtrip_stream",
-           "serve_codec_fns", "tables_from_reference", "words_to_rgb"]
+ENTRIES = ["FFVideoWriter", "SuperframeCodec", "codec_for",
+           "decode_frames_fused", "decode_header_from_words",
+           "decode_profile_to_raw", "decode_stream_superframes",
+           "encode_profile_from_raw", "encode_prototype_ternary",
+           "encode_stream_superframes", "image_file_to_words",
+           "image_to_words_subword", "make_frames", "proto_aniso_rc_encode",
+           "proto_aniso_rc_reconstruct", "proto_reconstruct_y_from_tiles",
+           "proto_spectral_sketch", "proto_tile_haar_ternary", "rgb_to_words",
+           "roundtrip_stream", "selftest_api_roundtrip", "selftest_rs_unit",
+           "serve_codec_fns", "tables_from_reference", "words_to_image_file",
+           "words_to_image_subword", "words_to_rgb",
+           "write_png_sequence_from_words", "write_video_from_words_sequence"]
+
+# entry points whose result is host data (files, numpy, flags): on the card
+# they must run and, where they decode, launch a kernel there
+HOST_RESULTS = {"decode_header_from_words", "encode_prototype_ternary",
+                "selftest_api_roundtrip", "selftest_rs_unit",
+                "words_to_image_file", "words_to_image_subword",
+                "write_png_sequence_from_words",
+                "write_video_from_words_sequence"}
 
 
-def test_every_entry_point_listed():
-    assert sorted(_calls()) == ENTRIES
+def test_every_entry_point_listed(tmp_path):
+    assert sorted(_calls(tmp_path)) == ENTRIES
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
-def test_default_device_is_the_card(entry):
-    call = _calls()[entry]
+def test_default_device_is_the_card(entry, tmp_path):
+    call = _calls(tmp_path)[entry]
     if torch.cuda.is_available():
         before = rs_cuda.launches
         out = call()
@@ -84,7 +136,15 @@ def test_default_device_is_the_card(entry):
         if entry == "decode_header_from_words":
             # a header is host data: K2 decoded its blocks on the card
             assert out[1] and rs_cuda.launches > before
-        else:
+        elif entry in ("selftest_rs_unit", "selftest_api_roundtrip"):
+            assert out and rs_cuda.launches > before
+        elif entry == "FFVideoWriter":
+            assert out.device.type == "cuda"
+        elif entry == "proto_aniso_rc_encode":
+            assert out.trits.device.type == "cuda"
+        elif entry == "make_frames":
+            assert out[0].device.type == "cuda"
+        elif entry not in HOST_RESULTS:
             assert first.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device"):

@@ -24,7 +24,13 @@ def test_import_leaves_jax_out():
                  "ops.subword", "ops.quant", "ops.wordcodec", "io.image",
                  "io.serve", "io.containers", "io.legacy_containers",
                  "ops.wirepack", "security.policy", "security.route",
-                 "runtime.executor", "runtime.native", "runtime.tracing"):
+                 "runtime.executor", "runtime.native", "runtime.tracing",
+                 "ops.proto", "profiles", "io.formats", "io.video", "cli",
+                 "cli.sigs", "cli.main", "cli.main_bare", "cli.t3proto_tool",
+                 "cli.minitest_aniso_rc", "cli.minitest_trits",
+                 "cli.minitest_codec", "cli.minitest_images", "cli.t3dump",
+                 "cli.minitest_t3containers", "cli.main_video_t3v",
+                 "cli.demo_write_video"):
         assert f"ternary_image_codec_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -116,3 +116,25 @@ def test_kernel_matches_twin(k, cuda_device):
     want, want_ok = rs.correct_pm_ref(pm, k)
     assert torch.equal(got_ok, want_ok)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [18, 20, 22, 24])
+def test_symbol_encode_decode(k):
+    """``rs.encode``/``rs.decode`` (symbols in and out, the decode through
+    ``correct_pm``) against the JAX package's ``encode_jit``/``decode_jit``:
+    codewords equal, ok flags equal, data equal where ok."""
+    data, recv, nerr = _codewords(k, seed=100 + k)
+    cw = rs.encode(torch.as_tensor(data.astype(np.int8)), k)
+    assert cw.dtype == torch.int8
+    assert np.array_equal(cw.numpy(), np.asarray(jrs.encode_jit(
+        jnp.asarray(data.astype(np.int8)), k)))
+    got, got_ok = rs.decode(torch.as_tensor(recv.astype(np.int8)), k)
+    want, want_ok = jrs.decode_jit(jnp.asarray(recv.astype(np.int8)), k)
+    got, got_ok = got.numpy(), got_ok.numpy()
+    want, want_ok = np.asarray(want), np.asarray(want_ok)
+    assert got.dtype == np.int8 and got.shape == (NBLK, k)
+    assert np.array_equal(got_ok, want_ok)
+    assert np.array_equal(got[want_ok], want[want_ok])
+    within = nerr <= (26 - k) // 2
+    assert got_ok[within].all()
+    assert np.array_equal(got[within], data[within])
