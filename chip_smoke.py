@@ -87,16 +87,34 @@ Phases, one output line each:
    twin; K1 timed on the UEP frame against its bound; ms per frame of
    each step and the peak device memory of the flagship's check and full
    decodes.
+9. the transform prototypes and the CLI tools (``phase_protos``): whether
+   PIL and ffmpeg are on the host (one JSON line); Haar ternary tiles, their
+   reconstruction, the spectral sketch, AnisoRC encode and reconstruction
+   on one 8K RGB frame (``rgb_frame``'s pixels) and one 1920x1080 frame
+   (1080 rows take AnisoRC's 32-row resize pad), each equal to the port's
+   CPU path on the same input (every integer output bit-equal, the sketch
+   in at least 62 of its 64 trits), timed warm by CUDA events beside its
+   memory bound, with its peak device memory; both prototype profiles at
+   8K through ``profiles.encode_prototype_ternary`` into .t3proto files,
+   read back and equal to the CPU run; the CLI tools on the card
+   (``tool_legs``: main_bare, minitest_trits, minitest_codec, t3proto_tool
+   on the 8K .t3proto, and where PIL is there t3proto_tool encode, main
+   and minitest_aniso_rc on a PNG of the 1080p frame); K1 and K2 launches
+   read per tool (the profile decode is the paged corrector: K2 for the
+   header chain and the repair, K1 on no tool's path), every K1 and K2
+   input of the tools held bit-equal to the kernel's twin.
 
 Then a JSON line with each kernel's numbers (``device_ms`` is the
 CUDA-graph time; ``at_path_sizes`` holds the times at the path's own
 sizes, the full strategy's and the frames-batched decode's among them;
 ``launches`` counts phase 5's stream, ``launches_pixel_path`` phase 6's
 run, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
-8's legs), the
+8's legs, ``launches_tools`` phase 9's tools), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
-Tolerance everywhere: zero (the codec is integer arithmetic).
+Tolerance everywhere: zero (the codec is integer arithmetic), except the
+spectral sketch's float32 DCT (at most 2 of 64 trits, as the reference's
+own test allows against the C++).
 """
 import contextlib
 import json
@@ -1480,6 +1498,334 @@ def phase_layouts(torch, dev):
     return legs, k1, times
 
 
+# --- phase 9: the transform prototypes and the CLI tools --------------------
+
+PROTO_SIZES = ((W8K, H8K), (1920, 1080))   # 1080 rows take the 32-row pad
+PROTO_REPS = 5
+SKETCH_TOL = 2         # of the sketch's 64 trits (float32 on both sides)
+
+
+def proto_image(torch, dev, w, h):
+    """(h, w, 3) uint8 RGB on ``dev``: at 8K the pixels of ``rgb_frame``
+    in raster order, at other sizes seed-0 uniform bytes."""
+    if (w, h) == (W8K, H8K):
+        return rgb_frame(torch, dev).permute(2, 1, 0).reshape(h, w, 3) \
+            .contiguous()
+    return torch.as_tensor(np.random.default_rng(0).integers(
+        0, 256, size=(h, w, 3), dtype=np.uint8), device=dev)
+
+
+def proto_stages(rgb, device):
+    """The prototype calls on one frame, each as a call: Haar tiles, their
+    reconstruction, the spectral sketch, AnisoRC encode and its
+    reconstruction (ops/proto.py defaults).  Returns (stage calls by name,
+    their outputs by name)."""
+    from ternary_image_codec_tpu_torch.ops import proto as P
+    pp, rp = P.ProtoParams(), P.AnisoRCParams()
+    out = {}
+    ll, trits, tx, ty = out["haar tiles"] = P.proto_tile_haar_ternary(
+        rgb, pp, device)
+    art = out["aniso_rc encode"] = P.proto_aniso_rc_encode(rgb, rp, device)
+    calls = {
+        "haar tiles": lambda: P.proto_tile_haar_ternary(rgb, pp, device),
+        "haar recon": lambda: P.proto_reconstruct_y_from_tiles(
+            ll, trits, tx, ty, pp, device),
+        "sketch": lambda: P.proto_spectral_sketch(rgb, pp, device),
+        "aniso_rc encode": lambda: P.proto_aniso_rc_encode(rgb, rp, device),
+        "aniso_rc recon": lambda: P.proto_aniso_rc_reconstruct(art, rp,
+                                                               device=device)}
+    for name in ("haar recon", "sketch", "aniso_rc recon"):
+        out[name] = calls[name]()
+    return calls, out
+
+
+def proto_equal(torch, got, want, what):
+    """Prototype outputs on two devices: every integer output bit-equal
+    (Haar LL, trits and tile counts, both reconstructions, every field of
+    AnisoRCArtifacts), the sketch within SKETCH_TOL trits.  Returns the
+    sketch's differing trits."""
+    import dataclasses
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return isinstance(b, torch.Tensor) and torch.equal(a.cpu(),
+                                                               b.cpu())
+        return a == b
+    for i, name in enumerate(("LL", "trits", "tiles_x", "tiles_y")):
+        require(same(got["haar tiles"][i], want["haar tiles"][i]),
+                f"{what}: Haar {name} differs")
+    for stage in ("haar recon", "aniso_rc recon"):
+        require(same(got[stage], want[stage]), f"{what}: {stage} differs")
+    for f in dataclasses.fields(got["aniso_rc encode"]):
+        require(same(getattr(got["aniso_rc encode"], f.name),
+                     getattr(want["aniso_rc encode"], f.name)),
+                f"{what}: AnisoRC {f.name} differs")
+    diff = int((got["sketch"].cpu() != want["sketch"].cpu()).sum())
+    require(got["sketch"].numel() == 64 and diff <= SKETCH_TOL,
+            f"{what}: sketch differs in {diff} of 64 trits")
+    return diff
+
+
+def proto_bound_ms(name, w, h, out):
+    """The least time of a stage: its input read once and its output
+    written once, over the HBM rate (every stage here is a few integer or
+    float operations a byte, far under the ALUs' rate)."""
+    n_px = w * h
+    tiles = n_px // 64                       # 8x8 Haar tiles
+    rc = out["aniso_rc encode"]
+    rc_out = rc.trits.numel() + rc.blocks_x * rc.blocks_y
+    moved = {"haar tiles": 3 * n_px + tiles * 49,
+             "haar recon": tiles * 49 + n_px,
+             "sketch": 3 * 256 * 256 + 64,    # the 256x256 NN samples
+             "aniso_rc encode": 3 * n_px + rc_out,
+             "aniso_rc recon": rc_out + rc.W * rc.H}[name]
+    return moved / HBM_BPS * 1e3
+
+
+def proto_files(torch, rgb, dev, want_rgb, d):
+    """Both prototype profiles through ``profiles.encode_prototype_ternary``
+    on ``dev``, each written as a .t3proto in ``d`` and read back; the
+    trits, packed bytes and meta JSON equal to the run on ``want_rgb``'s
+    device (Haar's sketch part within SKETCH_TOL).  Returns ({profile:
+    path}, {profile: host ms})."""
+    import os
+    from ternary_image_codec_tpu_torch import profiles as PR
+    from ternary_image_codec_tpu_torch.io import legacy_containers as LC
+    paths, ms = {}, {}
+    h, w = rgb.shape[:2]
+    for prof in (LC.ProtoProfile.HAAR_TERNARY, LC.ProtoProfile.ANISO_RC):
+        cfg = PR.ProtoConfig(profile=prof)
+        t0 = time.perf_counter()
+        bal, packed, meta = PR.encode_prototype_ternary(rgb, cfg, dev)
+        ms[prof.name] = (time.perf_counter() - t0) * 1e3
+        path = paths[prof.name] = os.path.join(d, f"{prof.name.lower()}.t3proto")
+        LC.t3proto_write(path, prof, w, h, bal, packed, meta)
+        got = LC.t3proto_read(path)
+        require(got[:3] == (prof, w, h) and got[5] == meta
+                and np.array_equal(got[3], bal)
+                and np.array_equal(got[4], packed),
+                f"{prof.name}: .t3proto read back differs from what was "
+                "written")
+        wbal, wpacked, wmeta = PR.encode_prototype_ternary(
+            want_rgb, cfg, want_rgb.device)
+        require(meta == wmeta, f"{prof.name}: meta JSON differs")
+        head = bal.size - json.loads(meta)["layout"].get("len_sketch", 0)
+        require(bal.size == wbal.size
+                and np.array_equal(bal[:head], wbal[:head])
+                and (bal[head:] != wbal[head:]).sum() <= SKETCH_TOL,
+                f"{prof.name}: balanced trits differ")
+        require(np.array_equal(packed, PR.pack_base243_from_balanced(bal))
+                and (not np.array_equal(bal, wbal)
+                     or np.array_equal(packed, wpacked)),
+                f"{prof.name}: packed bytes differ")
+    return paths, ms
+
+
+def run_tool(mod, argv):
+    """A CLI tool's ``main(argv)`` with its standard output captured:
+    (exit code, output)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    return rc, buf.getvalue()
+
+
+def tool_legs(torch, dev, d, proto_path, png, counted):
+    """The port's CLI tools on ``dev`` in directory ``d``, each run through
+    ``counted(leg, call)``: main_bare (self-tests OK, its demo files equal
+    to a run on the CPU), minitest_trits, minitest_codec, t3proto_tool info,
+    repack (packed, then balanced under --strict: the trits come back) and
+    cat on ``proto_path``; with a PNG (``png``, needs PIL): t3proto_tool
+    encode, main (its roundtrip PNG equal to the quantization round trip of
+    the image) and minitest_aniso_rc.  Returns {leg: summary}."""
+    import os
+    from ternary_image_codec_tpu_torch.cli import (main, main_bare,
+                                                   minitest_aniso_rc,
+                                                   minitest_codec,
+                                                   minitest_trits,
+                                                   t3proto_tool)
+    from ternary_image_codec_tpu_torch.io import legacy_containers as LC
+    dv = ["--device", str(dev)]
+    p = lambda *names: os.path.join(d, *names)
+    res = {}
+
+    rc, out = counted("main_bare", lambda: run_tool(
+        main_bare, ["--outdir", p("bare")] + dv))
+    require(rc == 0 and "RS unit: OK" in out and "API roundtrip: OK" in out,
+            f"main_bare on {dev}: {out!r}")
+    rc_cpu, _ = run_tool(main_bare, ["--outdir", p("bare_cpu"),
+                                     "--device", "cpu"])
+    for name in ("demo_s21.t3v", "demo_s21.t3p"):
+        with open(p("bare", name), "rb") as a, open(p("bare_cpu", name),
+                                                   "rb") as b:
+            require(rc_cpu == 0 and a.read() == b.read(),
+                    f"main_bare: {name} differs from the CPU run's")
+    res["main_bare"] = "RS unit OK, API roundtrip OK, demo files = CPU's"
+
+    for leg, mod in (("minitest_trits", minitest_trits),
+                     ("minitest_codec", minitest_codec)):
+        rc, out = counted(leg, lambda mod=mod: run_tool(mod, dv))
+        status = json.loads(out)["report"]["final_status"]
+        require(rc == 0 and status == "PASS", f"{leg}: {status}")
+        res[leg] = status
+
+    def t3t(*argv):
+        rc, out = run_tool(t3proto_tool, list(argv) + dv)
+        require(rc == 0, f"t3proto_tool {argv}: exit {rc}")
+        return out
+
+    def t3proto_leg():
+        info = json.loads(t3t("info", proto_path, "--json"))["t3proto"]
+        _, _, _, bal, packed, _ = LC.t3proto_read(proto_path)
+        require(info["trits"] == bal.size and info["bytes"] == packed.size,
+                f"t3proto_tool info: {info}")
+        t3t("repack", proto_path, "--to", "packed", "--out", p("pk.t3proto"))
+        t3t("repack", p("pk.t3proto"), "--to", "balanced", "--strict",
+            "--out", p("bal.t3proto"))
+        back = LC.t3proto_read(p("bal.t3proto"))[3]
+        require(np.array_equal(back, bal),
+                "t3proto_tool repack: the trits did not come back")
+        t3t("cat", "--out", p("cat.t3proto"), proto_path, proto_path)
+        cat = LC.t3proto_read(p("cat.t3proto"))
+        require(cat[3].size == 2 * bal.size and cat[4].size == 2 * packed.size,
+                "t3proto_tool cat: wrong sizes")
+        if png is not None:
+            t3t("encode", "--in", png, "--out", p("enc.t3proto"),
+                "--profile", "rc")
+            require(LC.t3proto_read(p("enc.t3proto"))[3].size > 0,
+                    "t3proto_tool encode wrote no trits")
+        return f"info, repack, cat on {info['trits']} trits" + (
+            ", encode" if png is not None else "")
+    res["t3proto_tool"] = counted("t3proto_tool", t3proto_leg)
+    if png is None:
+        return res
+
+    from ternary_image_codec_tpu_torch.io import image as I
+    from ternary_image_codec_tpu_torch.ops import quant as Q
+    rc, out = counted("main", lambda: run_tool(
+        main, [png, p("main.t3v"), "--roundtrip-png", p("rt.png")] + dv))
+    rgb = torch.as_tensor(I.load_image_rgb8(png))
+    want = Q.quant_to_rgb(Q.rgb_to_quant(rgb))
+    require(rc == 0 and np.array_equal(I.load_image_rgb8(p("rt.png")),
+                                       want.numpy()),
+            f"main: {out!r}, or its roundtrip PNG is not the quantization "
+            "round trip of the image")
+    res["main"] = "roundtrip PNG = quantization round trip"
+    rc, out = counted("minitest_aniso_rc", lambda: run_tool(
+        minitest_aniso_rc, ["--in", png, "--png", p("rc.png"), "--json"] + dv))
+    rep = json.loads(out)["aniso_rc"]
+    h, w = rgb.shape[:2]
+    require(rc == 0 and (rep["W"], rep["H"]) == (-(-w // 32) * 32,
+                                                 -(-h // 32) * 32)
+            and np.isfinite(rep["psnrY"]), f"minitest_aniso_rc: {rep}")
+    res["minitest_aniso_rc"] = f"PSNR-Y {rep['psnrY']} dB, {rep['bpp']} bpp"
+    return res
+
+
+def phase_protos(torch, dev):
+    """The transform prototypes and the CLI tools on the card: the five
+    prototype stages on one 8K frame and one 1920x1080 frame, equal to the
+    port's CPU path on the same input (integer outputs bit-equal, the
+    sketch within SKETCH_TOL of 64), timed warm by CUDA events with their
+    peak device memory; both prototype profiles at 8K through
+    ``profiles.encode_prototype_ternary`` into .t3proto files and back,
+    equal to the CPU run; the CLI tools (``tool_legs``) with K1 and K2
+    launches read per leg, every K1 and K2 input of the tools kept and held
+    bit-equal to the kernel's twin.  Returns (launches by leg, times)."""
+    import importlib.util
+    import os
+    import shutil
+    import tempfile
+    from ternary_image_codec_tpu_torch.io import image as I
+    from ternary_image_codec_tpu_torch.ops import (dec_cuda, pipeline, rs,
+                                                   rs_cuda)
+    has_pil = importlib.util.find_spec("PIL") is not None
+    has_ffmpeg = shutil.which("ffmpeg") is not None
+    print(json.dumps({"pil": has_pil, "ffmpeg": has_ffmpeg}), flush=True)
+
+    times, peaks, sketch_diff = {}, {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        png = None
+        for w, h in PROTO_SIZES:
+            key = f"{w}x{h}"
+            rgb = proto_image(torch, dev, w, h)
+            calls, got = proto_stages(rgb, dev)
+            _, want = proto_stages(rgb.cpu(), "cpu")
+            sketch_diff[key] = proto_equal(torch, got, want, key)
+            t, pk = {}, {}
+            for name, fn in calls.items():
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                wall = wall_ms(torch, fn)[0]
+                pk[name] = torch.cuda.max_memory_allocated(dev) - base
+                t[name] = {"ms": cuda_ms(torch, fn, PROTO_REPS),
+                           "host_ms": wall,
+                           "bound_ms": proto_bound_ms(name, w, h, got)}
+            times[key], peaks[key] = t, pk
+            if (w, h) == (W8K, H8K):
+                paths, times["t3proto 8K host ms"] = proto_files(
+                    torch, rgb, dev, rgb.cpu(), d)
+            elif has_pil:
+                png = os.path.join(d, f"frame_{key}.png")
+                I.save_image_png(png, rgb)
+            del calls, got, want, rgb
+
+        legs, k1_in, k2_in = {}, [], []
+
+        def counted(leg, fn):
+            dec_cuda.launches = 0
+            rs_cuda.launches = 0
+            t0 = time.perf_counter()
+            with kept_inputs(k1_in, k2_in):
+                out = fn()
+            legs[leg] = {"check_decode": dec_cuda.launches,
+                         "rs_correct": rs_cuda.launches,
+                         "s": time.perf_counter() - t0}
+            return out
+        tools = tool_legs(torch, dev, d, paths["HAAR_TERNARY"], png, counted)
+
+    n = {leg: {k: v for k, v in c.items() if k != "s"}
+         for leg, c in legs.items()}
+    # the profile decode is the paged corrector (header chain and repair
+    # on K2); no tool runs a check decode, so K1 is counted, not required
+    require(n["main_bare"]["rs_correct"] > 0,
+            f"main_bare did not launch K2: {n['main_bare']}")
+    require(n["minitest_trits"]["rs_correct"] > 0,
+            "minitest_trits' RS self-test did not launch K2")
+    if "main" in n:
+        require(n["main"]["rs_correct"] > 0,
+                f"main did not launch K2: {n['main']}")
+    require(len(k1_in) == sum(c["check_decode"] for c in n.values())
+            and len(k2_in) == sum(c["rs_correct"] for c in n.values()),
+            f"launches {n} but {len(k1_in)} K1 and {len(k2_in)} K2 inputs kept")
+    for body, layout in k1_in:
+        _dl, T = pipeline._body_decoder_tables(
+            pipeline.header_config(layout.hdr), layout.H, dev)
+        got, got_ok = dec_cuda.check_decode(body, layout)
+        want, want_ok = dec_cuda.check_decode_ref(body, T)
+        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
+                f"K1 on phase 9's n_sf={body.shape[0]} H={layout.H} input: "
+                "differs from plain")
+    for recv, k in k2_in:
+        got, got_ok = rs_cuda.rs_correct(recv, k)
+        want, want_ok = rs.correct_pm_ref(recv, k)
+        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
+                f"K2 on phase 9's k={k} B={recv.shape[-1]} input: differs "
+                "from plain")
+    print(f"[9 prototypes and tools] {' and '.join(times)} frames: Haar "
+          f"tiles, recon, AnisoRC encode, recon bit-equal to the CPU path, "
+          f"sketch trits differing {sketch_diff} of 64; both profiles at 8K "
+          f"through .t3proto files equal to the CPU run; tools {tools}; "
+          f"launches by leg {legs}; every kernel input bit-equal to plain "
+          f"({len(k1_in)} K1, {len(k2_in)} K2)", flush=True)
+    print(f"[9 prototype times] ms by CUDA events over {PROTO_REPS} warm "
+          f"calls, host ms of one warm call, the memory bound: "
+          f"{json.dumps(times)}; peak device memory above the frame (bytes): "
+          f"{json.dumps(peaks)}", flush=True)
+    return n, times
+
+
 def main():
     import torch
     name, smi_line = phase_device(torch)
@@ -1497,6 +1843,7 @@ def main():
     launches_px, at_sizes, _times = phase_pixel(torch, dev, cfg)
     launches_sv, _serve_times = phase_serve(torch, dev, cfg)
     launches_ly, k1_ly, _layout_times = phase_layouts(torch, dev)
+    launches_pt, _proto_times = phase_protos(torch, dev)
     k1_at_sizes = dict(at_sizes["check_decode"])
     k1_at_sizes[f"uep {NONRESIDUE_UEP} n_sf={k1_ly.pop('n_sf')}"] = k1_ly
     k2.update(at_sizes["rs_correct"])
@@ -1513,6 +1860,8 @@ def main():
          "launches_serve": launches_sv["check_decode"],
          "launches_layouts": {leg: n["check_decode"]
                               for leg, n in launches_ly.items()},
+         "launches_tools": {leg: n["check_decode"]
+                            for leg, n in launches_pt.items()},
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -1526,6 +1875,8 @@ def main():
          "launches_serve": launches_sv["rs_correct"],
          "launches_layouts": {leg: n["rs_correct"]
                               for leg, n in launches_ly.items()},
+         "launches_tools": {leg: n["rs_correct"]
+                            for leg, n in launches_pt.items()},
          "max_abs_err": k2_err,
          "ms": k2_big["ms"], "device_ms": k2_big["device_ms"],
          "plain_ms": k2_big["plain_ms"], "bound_ms": k2_big["bound_ms"],

@@ -19,12 +19,15 @@ frames and a T3V6 file in a temporary directory (ms per frame; the file
 is read back from the page cache); then the flagship streaming layout
 (``chip_smoke.flagship_cfg``: P5 26x26, luma-priority UEP, a period-13
 beacon in band 4) on the same frames: encode, check and fused clean and
-dirty, full dirty, the e2e roundtrip.  Then ``torch.profiler`` tables
-(self device time by op) for encode, the fused and full dirty decodes,
-the e2e roundtrip, ``enc_serve``, ``dec_serve`` and the flagship's
-encode, clean check, fused and full dirty decodes and e2e, with the device
-busy share of each: the device time of all its kernels over the median
-host time of the same stage with the profiler off.
+dirty, full dirty, the e2e roundtrip; then the transform prototypes on
+``chip_smoke.py``'s 8K RGB frame (``proto_stages``: Haar tiles, their
+reconstruction, the spectral sketch, AnisoRC encode and reconstruction).
+Then ``torch.profiler`` tables (self device time by op) for encode, the
+fused and full dirty decodes, the e2e roundtrip, ``enc_serve``,
+``dec_serve``, the flagship's encode, clean check, fused and full dirty
+decodes and e2e, and each prototype stage, with the device busy share of
+each: the device time of all its kernels over the median host time of the
+same stage with the profiler off.
 """
 import os
 import tempfile
@@ -33,8 +36,9 @@ import time
 import numpy as np
 
 from chip_smoke import (H8K, REPAIR_CAP, SERVE_FRAMES, SF_BATCH, W8K,
-                        damaged, flagship_cfg, pixel_roundtrip, rgb_frame,
-                        serve_frames, serve_read, serve_write, wall_ms)
+                        damaged, flagship_cfg, pixel_roundtrip, proto_image,
+                        proto_stages, rgb_frame, serve_frames, serve_read,
+                        serve_write, wall_ms)
 
 REPS = 5
 
@@ -143,6 +147,9 @@ def main():
                 ("flagship decode full, dirty", fdec(fdirty, "full")),
                 ("flagship e2e roundtrip (feed, fold)", fe2e)]
     stages += flagship
+    proto_calls, _ = proto_stages(proto_image(torch, dev, W8K, H8K), dev)
+    protos = [(f"prototype {name}", fn) for name, fn in proto_calls.items()]
+    stages += protos
 
     lines = [f"one 8K frame: {n_raw} RAW words, {n_sf} superframes; "
              f"{torch.cuda.get_device_name(0)}; host ms over {REPS} "
@@ -161,7 +168,7 @@ def main():
                       lambda: enc_serve(chunks)),
                      ("dec_serve (unpack, K1 check, checksums)",
                       lambda: dec_serve(serve_by)),
-                     *(flagship[i] for i in (0, 1, 4, 5, 6))):
+                     *(flagship[i] for i in (0, 1, 4, 5, 6)), *protos):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
