@@ -205,8 +205,11 @@ def codec_for(cfg: EncoderConfig, device=None,
               n_raw_words: int | None = None) -> SuperframeCodec:
     """The (cached) codec of ``cfg`` on ``device`` (default: the current
     CUDA device; raises without one), for superframes of ``n_raw_words``
-    RAW words (``pipeline.stream_layouts``)."""
-    return _codec_for(cfg, resolve_device(device), n_raw_words)
+    RAW words (``pipeline.stream_layouts``; None is
+    ``cfg.superframe_words``, one codec for both)."""
+    return _codec_for(cfg, resolve_device(device),
+                      cfg.superframe_words if n_raw_words is None
+                      else n_raw_words)
 
 
 @functools.lru_cache(maxsize=16)

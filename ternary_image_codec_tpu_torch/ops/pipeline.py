@@ -367,10 +367,11 @@ def reference_inputs(cfg: EncoderConfig,
     }
 
 
-def _encode_gather(layout: EncodeLayout, grp: KGroup):
+def _encode_gather(layout: EncodeLayout, grp: KGroup, blocks=None):
     """Source of every data digit of one group: (g, nblk, k, 3) indices
     into a superframe's flat RAW symbols (n*9, plus one zero slot at the
-    end) and the power of 3 that selects the digit.  Data digit d of band
+    end) and the power of 3 that selects the digit; with ``blocks`` (a
+    range of block numbers), of those blocks only.  Data digit d of band
     b, block blk, coeff c is digit d of symbol i = 9*(blk*k + c) + b of the
     band stream; that is stream symbol s = i, or s = perm[i] under P5
     (interleaved over the decoder's stream length, zero past it); stream
@@ -378,7 +379,8 @@ def _encode_gather(layout: EncodeLayout, grp: KGroup):
     words."""
     cfg, n = layout.cfg, layout.n_raw_words
     b = np.asarray(grp.bands)[:, None, None, None]
-    blk = np.arange(grp.nblk)[None, :, None, None]
+    blk = np.arange(grp.nblk) if blocks is None else np.asarray(blocks)
+    blk = blk[None, :, None, None]
     c = np.arange(grp.k)[None, None, :, None]
     d = np.arange(3)[None, None, None, :]
     i = NUM_BANDS * (blk * grp.k + c) + b
@@ -482,6 +484,16 @@ def decode_tables(dlayout: DecodeLayout, ref: dict) -> dict:
     return t
 
 
+def parity_map(G2: np.ndarray, k: int) -> np.ndarray:
+    """RS(26, k)'s parity as a GF(3)-linear map from a block's data digits
+    flattened (c, d) to its parity digits (c', d'), (3k, 3(26-k)) int8,
+    from the generator map ``G2`` ((3*26, 3*k), rows [d', c'], columns
+    [d, c])."""
+    G2 = np.asarray(G2).reshape(3, rs.N, 3, k)              # [d', c', d, c]
+    return np.ascontiguousarray(
+        G2[:, k:].transpose(3, 2, 1, 0).reshape(3 * k, 3 * (rs.N - k)))
+
+
 def derive_tables(cfg: EncoderConfig, ref: dict,
                   n_raw_words: int | None = None) -> dict:
     """Every table a ``SuperframeCodec`` holds, as numpy arrays, from the
@@ -493,11 +505,7 @@ def derive_tables(cfg: EncoderConfig, ref: dict,
     t = decode_tables(dlayout, ref)
     groups = k_groups(geom, beacon)
     for k in sorted({grp.k for grp in groups}):
-        r = rs.N - k
-        G2 = t[f"rs{k}_G2"].reshape(3, rs.N, 3, k)       # [d', c', d, c]
-        # parity map on data digits flattened (c, d) -> parity (c', d')
-        t[f"par{k}"] = np.ascontiguousarray(
-            G2[:, k:].transpose(3, 2, 1, 0).reshape(3 * k, 3 * r))
+        t[f"par{k}"] = parity_map(t[f"rs{k}_G2"], k)
     for grp in groups:
         t[f"enc_src_{grp.name}"], t[f"enc_pow_{grp.name}"] = \
             _encode_gather(layout, grp)

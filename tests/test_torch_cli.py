@@ -26,8 +26,8 @@ from ternary_image_codec_tpu.cli import (demo_write_video as r_demo,
                                          minitest_trits as r_trits,
                                          t3dump as r_dump, t3proto_tool as r_t3t)
 from ternary_image_codec_tpu.io import video as RV
-from ternary_image_codec_tpu_torch.cli import (demo_write_video, main,
-                                               main_bare, main_video_t3v,
+from ternary_image_codec_tpu_torch.cli import (channel_qa, demo_write_video,
+                                               main, main_bare, main_video_t3v,
                                                minitest_aniso_rc,
                                                minitest_codec,
                                                minitest_images,
@@ -291,10 +291,39 @@ def test_demo_write_video_png_fallback(both, monkeypatch):
     assert len(os.listdir(res["ours"][2] / "pngs")) == 2
 
 
+def _reference_tool(name):
+    """A script of the repository's tools/ directory, as a module."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"tools_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("extra", [["--json"], []], ids=["json", "table"])
+def test_channel_qa(both, extra):
+    """The same draws and the same rates: stdout byte for byte, as JSON
+    and as the table."""
+    res = both(_reference_tool("channel_qa").main, channel_qa.main,
+               ["--blocks", "64", "--seed", "3"] + extra)
+    _same(res)
+    assert res["ours"][0] == 0
+    if extra:
+        rep = _report(res)
+        assert sorted(rep) == ["RS(26,18) t=4", "RS(26,20) t=3",
+                               "RS(26,22) t=2", "RS(26,24) t=1"]
+        for name, rows in rep.items():
+            t = int(name[-1])
+            assert rows["0"]["exact"] == rows[str(t)]["exact"] == 1.0
+            assert len(rows) == 2 * t + 2
+
+
 def test_tools_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is the card")
-    tools = [(main, ["a.png", "b.t3v"]), (main_bare, []),
+    tools = [(main, ["a.png", "b.t3v"]), (main_bare, []), (channel_qa, []),
              (minitest_trits, []), (minitest_codec, []),
              (minitest_images, ["--in", "a.png"]),
              (minitest_aniso_rc, ["--in", "a.png"]),

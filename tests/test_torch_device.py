@@ -18,6 +18,8 @@ from ternary_image_codec_tpu_torch.cli import demo_write_video, main_bare
 from ternary_image_codec_tpu_torch.codec import codec_for, resolve_device
 from ternary_image_codec_tpu_torch.io import formats, image, serve, video
 from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline, proto, rs_cuda
+from ternary_image_codec_tpu_torch.parallel import dryrun, launch
+from ternary_image_codec_tpu_torch.parallel import mesh as pmesh
 
 CFG = port.EncoderConfig(profile=port.ProfileID.P2_RS26_22,
                          uep=port.uep_luma_priority(), superframe_words=256)
@@ -97,25 +99,30 @@ def _calls(tmp):
         "selftest_rs_unit": lambda: main_bare.selftest_rs_unit(),
         "selftest_api_roundtrip": lambda: main_bare.selftest_api_roundtrip(),
         "make_frames": lambda: demo_write_video.make_frames(16, 8, 1),
+        "spawn": lambda: launch.spawn(dryrun.dryrun_rank, 1, timeout_s=300),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
     }
 
 
 ENTRIES = ["FFVideoWriter", "SuperframeCodec", "codec_for",
            "decode_frames_fused", "decode_header_from_words",
            "decode_profile_to_raw", "decode_stream_superframes",
-           "encode_profile_from_raw", "encode_prototype_ternary",
+           "dryrun_multichip", "encode_profile_from_raw",
+           "encode_prototype_ternary",
            "encode_stream_superframes", "image_file_to_words",
            "image_to_words_subword", "make_frames", "proto_aniso_rc_encode",
            "proto_aniso_rc_reconstruct", "proto_reconstruct_y_from_tiles",
            "proto_spectral_sketch", "proto_tile_haar_ternary", "rgb_to_words",
            "roundtrip_stream", "selftest_api_roundtrip", "selftest_rs_unit",
-           "serve_codec_fns", "tables_from_reference", "words_to_image_file",
+           "serve_codec_fns", "spawn", "tables_from_reference",
+           "words_to_image_file",
            "words_to_image_subword", "words_to_rgb",
            "write_png_sequence_from_words", "write_video_from_words_sequence"]
 
 # entry points whose result is host data (files, numpy, flags): on the card
 # they must run and, where they decode, launch a kernel there
-HOST_RESULTS = {"decode_header_from_words", "encode_prototype_ternary",
+HOST_RESULTS = {"decode_header_from_words", "dryrun_multichip",
+                "encode_prototype_ternary", "spawn",
                 "selftest_api_roundtrip", "selftest_rs_unit",
                 "words_to_image_file", "words_to_image_subword",
                 "write_png_sequence_from_words",
@@ -149,6 +156,22 @@ def test_default_device_is_the_card(entry, tmp_path):
     else:
         with pytest.raises(RuntimeError, match="device"):
             call()
+
+
+def test_mesh_default_device():
+    """A mesh takes the device its rank was given, else the current CUDA
+    device: without a card (and outside a rank) it raises as every entry
+    point does; with one, it asks for the process group it lacks."""
+    for make in (pmesh.make_mesh, pmesh.make_mesh_pp):
+        if torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="process group"):
+                make()
+        else:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch.rank_devices(2)
 
 
 def test_resolve_device():

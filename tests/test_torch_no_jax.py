@@ -9,7 +9,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "ternary_image_codec_tpu_torch"
-SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "profile_port.py"]
+# scripts, and the module that test ranks import afresh
+SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "profile_port.py",
+           ROOT / "tests" / "torch_mesh_ranks.py"]
 REF = "ternary_image_codec_tpu"
 
 
@@ -30,7 +32,9 @@ def test_import_leaves_jax_out():
                  "cli.minitest_aniso_rc", "cli.minitest_trits",
                  "cli.minitest_codec", "cli.minitest_images", "cli.t3dump",
                  "cli.minitest_t3containers", "cli.main_video_t3v",
-                 "cli.demo_write_video"):
+                 "cli.demo_write_video", "cli.channel_qa", "parallel",
+                 "parallel.launch", "parallel.mesh", "parallel.dryrun",
+                 "parallel.probe"):
         assert f"ternary_image_codec_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
