@@ -104,12 +104,38 @@ Phases, one output line each:
    header chain and the repair, K1 on no tool's path), every K1 and K2
    input of the tools held bit-equal to the kernel's twin.
 
+10. multi-device (``phase_mesh``) through ``parallel/`` on the card, the
+   kernels built once by phase 2 and only loaded by the ranks: (a) one
+   NCCL rank: ``roundtrip_superframes_dp`` of one 8K frame (P2 + luma UEP,
+   2,025 superframes) exact and equal to the single-device
+   ``roundtrip_stream(rs_mode="paged")``; ``decode_superframes_fused_dp``
+   of it under ``bench_damage`` at ``REPAIR_CAP`` exact and equal to the
+   single-device fused decode, the superframes with damaged header cells
+   flagged by the check and repaired, an overcap copy failing safe;
+   frame-DP on 1920x1080 frames (one profile each, 2 a rank:
+   ``roundtrip_step_dp``, ``decode_frames_dp`` of injected errors) and
+   ``encode_stream_sharded`` of one of them; (b) two gloo ranks sharing
+   the card: the same legs, equal to (a), and ``roundtrip_pipeline_pp``
+   of the 8K frame's superframes as 5 microbatches of 405 frames, clean,
+   with correctable link damage and beyond the paged capacity in one
+   frame (exactly that frame flagged); (c) ``dryrun_multichip``'s legs on
+   four gloo ranks sharing the card; (d) NCCL with one rank a card where
+   there are two or more cards (otherwise one line says it did not run);
+   (e) ``cli/channel_qa.py --device cuda --json`` equal to its CPU run, K2
+   launched once a (k, error count).  K1/K2 launches are read per rank
+   and leg (K1 only where a check decode runs, K2 wherever a paged decode
+   does, nothing on PP's stage 0), every kernel input a rank launches is
+   held bit-equal to the twin in that rank; ms per 8K frame by CUDA
+   events (superframe-DP, fused-DP dirty, PP; the single-device calls
+   beside them at world 1) and peak device memory per rank.
+
 Then a JSON line with each kernel's numbers (``device_ms`` is the
 CUDA-graph time; ``at_path_sizes`` holds the times at the path's own
 sizes, the full strategy's and the frames-batched decode's among them;
 ``launches`` counts phase 5's stream, ``launches_pixel_path`` phase 6's
 run, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
-8's legs, ``launches_tools`` phase 9's tools), the
+8's legs, ``launches_tools`` phase 9's tools, ``launches_mesh`` phase 10's
+legs, a count per rank), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
 Tolerance everywhere: zero (the codec is integer arithmetic), except the
@@ -722,6 +748,26 @@ def kept_inputs(k1, k2):
         yield
     finally:
         dec_cuda.check_decode, rs_cuda.rs_correct = check_decode, rs_correct
+
+
+def hold_kept(torch, dev, k1_in, k2_in, what):
+    """Every kept K1 and K2 input run again through the kernel and its
+    plain twin: bit-equal outputs and flags."""
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline, rs, rs_cuda
+    for body, layout in k1_in:
+        _dl, T = pipeline._body_decoder_tables(
+            pipeline.header_config(layout.hdr), layout.H, dev)
+        got, got_ok = dec_cuda.check_decode(body, layout)
+        want, want_ok = dec_cuda.check_decode_ref(body, T)
+        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
+                f"K1 on {what}'s n_sf={body.shape[0]} input: differs from "
+                "plain")
+    for recv, k in k2_in:
+        got, got_ok = rs_cuda.rs_correct(recv, k)
+        want, want_ok = rs.correct_pm_ref(recv, k)
+        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
+                f"K2 on {what}'s k={k} B={recv.shape[-1]} input: differs "
+                "from plain")
 
 
 def phase_pixel(torch, dev, cfg):
@@ -1738,8 +1784,7 @@ def phase_protos(torch, dev):
     import shutil
     import tempfile
     from ternary_image_codec_tpu_torch.io import image as I
-    from ternary_image_codec_tpu_torch.ops import (dec_cuda, pipeline, rs,
-                                                   rs_cuda)
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
     has_pil = importlib.util.find_spec("PIL") is not None
     has_ffmpeg = shutil.which("ffmpeg") is not None
     print(json.dumps({"pil": has_pil, "ffmpeg": has_ffmpeg}), flush=True)
@@ -1799,20 +1844,7 @@ def phase_protos(torch, dev):
     require(len(k1_in) == sum(c["check_decode"] for c in n.values())
             and len(k2_in) == sum(c["rs_correct"] for c in n.values()),
             f"launches {n} but {len(k1_in)} K1 and {len(k2_in)} K2 inputs kept")
-    for body, layout in k1_in:
-        _dl, T = pipeline._body_decoder_tables(
-            pipeline.header_config(layout.hdr), layout.H, dev)
-        got, got_ok = dec_cuda.check_decode(body, layout)
-        want, want_ok = dec_cuda.check_decode_ref(body, T)
-        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
-                f"K1 on phase 9's n_sf={body.shape[0]} H={layout.H} input: "
-                "differs from plain")
-    for recv, k in k2_in:
-        got, got_ok = rs_cuda.rs_correct(recv, k)
-        want, want_ok = rs.correct_pm_ref(recv, k)
-        require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
-                f"K2 on phase 9's k={k} B={recv.shape[-1]} input: differs "
-                "from plain")
+    hold_kept(torch, dev, k1_in, k2_in, "phase 9")
     print(f"[9 prototypes and tools] {' and '.join(times)} frames: Haar "
           f"tiles, recon, AnisoRC encode, recon bit-equal to the CPU path, "
           f"sketch trits differing {sketch_diff} of 64; both profiles at 8K "
@@ -1824,6 +1856,492 @@ def phase_protos(torch, dev):
           f"{json.dumps(times)}; peak device memory above the frame (bytes): "
           f"{json.dumps(peaks)}", flush=True)
     return n, times
+
+
+# --- phase 10: multi-device -------------------------------------------------
+
+MESH_TIMEOUT_S = 420   # each spawn's limit, and its process group's
+MESH_REPS = 3          # timed calls a leg (the least is kept)
+MESH_8K = {"n": W8K * H8K // 2, "sfw": 8192, "frame": 1920 * 1080 // 2,
+           "pp": (5, 405)}  # 2,025 superframes as 5 microbatches of 405
+# PP with two data ranks a stage: 2,024 superframes as 4 microbatches of 506
+MESH_8K_PP4 = dict(MESH_8K, pp=(4, 506))
+MESH_1RANK_LEGS = ["superframe_dp", "fused_dp", "frame_dp"]
+# frame-DP's extra error in frame i: band 0 (k=20), block FRAME_ERR_BLOCK + i
+FRAME_ERR_BLOCK = 100
+# beyond the paged corrector's capacity in one PP frame: one error in each
+# of PP_OVER_PAGES 16-block pages of band 1 (its k=22 group repairs 6)
+PP_OVER_PAGES = 7
+
+
+def mesh_cfg(port, sizes):
+    return port.EncoderConfig(profile=port.ProfileID.P2_RS26_22,
+                              uep=port.uep_luma_priority(),
+                              superframe_words=sizes["sfw"])
+
+
+def mesh_raw(torch, dev, n, seed):
+    """n RAW words (n, 9) int8 made on ``dev`` from ``seed`` (symbol 8
+    holds trits 24..26, trit 26 zero): the same words on every rank of one
+    device type."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randint(0, 27, (n, 9), generator=g, device=dev)
+    w[:, 8] %= 9
+    return w.to(torch.int8)
+
+
+def digest(x):
+    import hashlib
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def mesh_ms(torch, mesh, fn, reps=MESH_REPS):
+    """The least time of ``reps`` calls of ``fn``, each started on every
+    rank together (a barrier) and timed by CUDA events around synchronised
+    calls (by the host clock on the CPU, for rehearsals only)."""
+    import torch.distributed as dist
+    cuda = mesh.device.type == "cuda"
+    best = []
+    for _ in range(reps):
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        dist.barrier(group=mesh.group)
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize(mesh.device)
+            best.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            best.append((time.perf_counter() - t0) * 1e3)
+    return min(best)
+
+
+def leg_superframe_dp(torch, mesh, sizes):
+    """``roundtrip_superframes_dp`` of the frame: exact, ok, equal to the
+    single-device ``roundtrip_stream(rs_mode="paged")``."""
+    import ternary_image_codec_tpu_torch as port
+    from ternary_image_codec_tpu_torch.parallel import mesh as M
+    cfg, n, sfw = mesh_cfg(port, sizes), sizes["n"], sizes["sfw"]
+    raw = mesh_raw(torch, mesh.device, n, 0)
+
+    def call():
+        return M.roundtrip_superframes_dp(raw, cfg, mesh, sf_batch=SF_BATCH)
+
+    def run():
+        rows, ok = call()
+        return M.gather(mesh, rows)[:n], bool(ok)
+
+    def single():
+        return port.roundtrip_stream(raw.view(-1, sfw, 9), cfg,
+                                     sf_batch=SF_BATCH, rs_mode="paged",
+                                     device=mesh.device)
+
+    def check(out):
+        got, ok = out
+        require(ok and torch.equal(got, raw),
+                "superframe-DP round trip: not exact")
+        if mesh.rank == 0:
+            planes, ok1 = single()
+            require(bool(ok1.all()) and torch.equal(
+                planes[:, :, :sfw].transpose(1, 2).reshape(-1, 9), got),
+                "superframe-DP differs from the single-device roundtrip")
+        return {"digest": digest(got)}
+    timed = {"superframe_dp": call}
+    if mesh.size == 1:
+        timed["single-device roundtrip_stream paged"] = single
+    return run, check, timed
+
+
+def leg_fused_dp(torch, mesh, sizes):
+    """``decode_superframes_fused_dp`` of the frame under ``bench_damage``
+    (header cells too) at ``REPAIR_CAP``: exact, ok, equal to the
+    single-device fused decode; the superframes with damaged header cells
+    are flagged by the check and end ok (the header chain repaired them);
+    an overcap copy fails safe."""
+    import ternary_image_codec_tpu_torch as port
+    from ternary_image_codec_tpu_torch.codec import codec_for
+    from ternary_image_codec_tpu_torch.ops import gf27
+    from ternary_image_codec_tpu_torch.parallel import mesh as M
+    cfg, n, sfw = mesh_cfg(port, sizes), sizes["n"], sizes["sfw"]
+    dev = mesh.device
+    raw = mesh_raw(torch, dev, n, 0)
+    # the frame's superframes, padded with encoded zero superframes to a
+    # multiple of the mesh size, the damage on the frame's own
+    n_sf = -(-n // sfw)
+    pad = -(-n_sf // mesh.size) * mesh.size * sfw - n
+    words = port.encode_stream_superframes(
+        torch.nn.functional.pad(raw, (0, 0, 0, pad)), cfg,
+        sf_batch=SF_BATCH, device=dev)
+    total_w = words.shape[1]
+    si_sf, (si, _bi, pi, _dlt) = bench_damage(n_sf, total_w)
+    hdr_sf = np.unique(si[pi < 6])
+    dirty = torch.cat([damaged(torch, words[:n_sf]), words[n_sf:]])
+    del words
+    # overcap: 3 errors in one k=22 codeword (band 1, block 2) of 2 clean
+    # superframes, as phase 5
+    over = dirty.clone()
+    for sf in np.setdiff1d(np.arange(n_sf), si_sf)[:2]:
+        rows = 6 + 2 * 26 + torch.arange(3, device=dev)
+        e = torch.tensor([1, 1, 2], dtype=torch.int8, device=dev)
+        over[int(sf), rows, 1] = gf27.dig_to_sym(gf27.mod3(
+            gf27.sym_to_dig(over[int(sf), rows, 1]).to(torch.int16)
+            + gf27.sym_to_dig(e)))
+
+    def call(words):
+        return M.decode_superframes_fused_dp(words, cfg, mesh,
+                                             repair_cap=REPAIR_CAP)
+
+    def run():
+        fix, ok = call(dirty)
+        got = M.gather(mesh, fix)[:, :sfw].reshape(-1, 9)[:n]
+        return got, bool(ok), bool(call(over)[1])
+
+    def single():
+        return port.decode_stream_superframes(
+            dirty, cfg, n, sf_batch=SF_BATCH, strategy="fused",
+            repair_cap=REPAIR_CAP, device=dev)
+
+    def check(out):
+        got, ok, ok_over = out
+        require(ok and torch.equal(got, raw),
+                "fused superframe-DP decode under bench_damage: not exact")
+        require(not ok_over, "fused superframe-DP overcap copy: ok is True")
+        codec = codec_for(cfg, dev)
+        hdr_T = dirty[torch.as_tensor(hdr_sf, device=dev)].transpose(1, 2)
+        require(not bool(codec.check(hdr_T.contiguous())[1].any()),
+                "damaged header cells not flagged by the check")
+        if mesh.rank == 0:
+            want, ok1 = single()
+            require(bool(ok1) and torch.equal(want, got),
+                    "fused superframe-DP differs from the single-device "
+                    "fused decode")
+        return {"digest": digest(got), "header_superframes_repaired":
+                len(hdr_sf), "flagged": len(si_sf)}
+    timed = {"fused_dp dirty": lambda: call(dirty)}
+    if mesh.size == 1:
+        timed["single-device fused dirty"] = single
+    return run, check, timed
+
+
+def leg_frame_dp(torch, mesh, sizes):
+    """Frame-DP on 2 frames a rank of ``sizes["frame"]`` RAW words (one
+    profile each): ``roundtrip_step_dp`` exact; ``decode_frames_dp`` of the
+    encoded frames with injected symbol errors repaired exactly;
+    ``encode_stream_sharded`` of frame 0 equal to the single-device
+    ``encode_profile_from_raw``."""
+    import ternary_image_codec_tpu_torch as port
+    from ternary_image_codec_tpu_torch.parallel import mesh as M
+    cfg, n1, dev = mesh_cfg(port, sizes), sizes["frame"], mesh.device
+    B = 2 * mesh.size
+    frames = torch.stack([mesh_raw(torch, dev, n1, 100 + i)
+                          for i in range(B)])
+
+    def run():
+        out, ok = M.roundtrip_step_dp(frames, cfg, mesh)
+        got = M.gather(mesh, out)[:, :n1]
+        words = M.gather(mesh, M.encode_frames_dp(frames, cfg, mesh))
+        hw = 6
+        for row, band, d in ((hw + 7, 4, 1), (hw + 20, 1, 2)):
+            words[:, row, band] = (words[:, row, band] + d) % 27
+        for i in range(B):
+            row = hw + 26 * (FRAME_ERR_BLOCK + i) + 3
+            words[i, row, 0] = (words[i, row, 0] + 5) % 27
+        fix, ok_f, all_ok = M.decode_frames_dp(words, cfg, mesh)
+        fix = M.gather(mesh, fix)[:, :n1]
+        ok_f = M.gather(mesh, ok_f)
+        prof = M.gather(mesh, M.encode_stream_sharded(frames[0], cfg, mesh))
+        return got, bool(ok), fix, bool(ok_f.all()), bool(all_ok), prof
+
+    def check(out):
+        got, ok, fix, ok_f, all_ok, prof = out
+        require(ok and torch.equal(got, frames),
+                "frame-DP round trip: not exact")
+        require(ok_f and all_ok and torch.equal(fix, frames),
+                "frame-DP repair of injected errors: not exact")
+        want = port.encode_profile_from_raw(frames[0], cfg, device=dev)
+        require(torch.equal(prof, want),
+                "stream-sharded encode differs from the single-device one")
+        # frames 0 and 1 are the same at every rank count
+        return {"digest": digest(got[:2]) + digest(fix[:2]) + digest(prof)}
+    return run, check, {}
+
+
+def leg_pp(torch, mesh, sizes):
+    """``roundtrip_pipeline_pp`` of the frame's first T x db superframes
+    as frames of ``sfw`` words (T microbatches of db): clean; with <= t errors a codeword
+    on the link in 3 frames (exact, every frame ok); with errors in more
+    16-block pages than the paged corrector repairs in one frame (exactly
+    that frame flagged, every other frame exact)."""
+    import ternary_image_codec_tpu_torch as port
+    from ternary_image_codec_tpu_torch.codec import codec_for
+    from ternary_image_codec_tpu_torch.parallel import mesh as M
+    cfg, n, sfw = mesh_cfg(port, sizes), sizes["n"], sizes["sfw"]
+    T, db = sizes["pp"]
+    dev = mesh.device
+    frames = mesh_raw(torch, dev, n, 0)[:T * db * sfw].view(T, db, sfw, 9)
+    total = codec_for(cfg, dev, sfw).layout.total_words
+    fix_dmg = torch.zeros((T, db, total, 9), dtype=torch.int8, device=dev)
+    for t, f, band, blk in ((0, 0, 1, 5), (T // 2, db // 2, 4, 8),
+                            (T - 1, db - 1, 7, 3)):
+        for c in (3, 17):                     # 2 errors, k=22 has t=2
+            fix_dmg[t, f, 6 + 26 * blk + c, band] = 5 + c
+    bad = (1 % T, 7 % db)
+    over_dmg = torch.zeros_like(fix_dmg)
+    for p in range(PP_OVER_PAGES):
+        over_dmg[bad[0], bad[1], 6 + 26 * 16 * p, 1] = 1
+
+    def call(dmg=None):
+        return M.roundtrip_pipeline_pp(frames, cfg, mesh, wire_damage=dmg)
+
+    def run():
+        res = []
+        for dmg in (None, fix_dmg, over_dmg):
+            out, ok = call(dmg)
+            res.append((M.gather(mesh, out, dim=1, axis="data")[:, :, :sfw],
+                        M.gather(mesh, ok, dim=1, axis="data")))
+        return res
+
+    def check(out):
+        (clean, ok), (fixed, ok_fix), (over, ok_over) = out
+        require(bool(ok.all()) and torch.equal(clean, frames),
+                "PP round trip: not exact")
+        require(bool(ok_fix.all()) and torch.equal(fixed, frames),
+                "PP with correctable link damage: not exact")
+        want = torch.ones_like(ok_over)
+        want[bad] = False
+        keep = want.clone()
+        require(torch.equal(ok_over, want) and torch.equal(
+            over[keep], frames[keep]),
+            "PP beyond capacity: not exactly the damaged frame flagged")
+        return {"digest": digest(clean)}
+    return run, check, {"pp": call}
+
+
+MESH_LEGS = {"superframe_dp": leg_superframe_dp, "fused_dp": leg_fused_dp,
+             "frame_dp": leg_frame_dp, "pp": leg_pp}
+
+
+def mesh_leg(torch, mesh, name, sizes):
+    """One leg on this rank: its run with the launch counts read from it
+    alone and every K1/K2 input kept, its checks, the kept inputs held to
+    the twins, then its warm times.  Returns host data."""
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    run, check, timed = MESH_LEGS[name](torch, mesh, sizes)
+    k1_in, k2_in = [], []
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if cuda else 0
+    t0 = time.perf_counter()
+    dec_cuda.launches = 0
+    rs_cuda.launches = 0
+    with kept_inputs(k1_in, k2_in):
+        out = run()
+    launches = {"check_decode": dec_cuda.launches,
+                "rs_correct": rs_cuda.launches}
+    res = check(out)
+    del out
+    res["s"] = time.perf_counter() - t0
+    res["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) - base
+                         if cuda else None)
+    require(len(k1_in) == launches["check_decode"]
+            and len(k2_in) == launches["rs_correct"],
+            f"{name}: launches {launches} but {len(k1_in)} K1 and "
+            f"{len(k2_in)} K2 inputs kept")
+    hold_kept(torch, dev, k1_in, k2_in, name)
+    del k1_in, k2_in
+    res["ms"] = {key: mesh_ms(torch, mesh, fn) for key, fn in timed.items()}
+    res["launches"] = launches
+    return res
+
+
+def mesh_rank(rank, world, legs, sizes=MESH_8K):
+    """Phase 10's rank function: each leg of ``legs`` on a ``world``-rank
+    mesh (``pp`` on the 2-stage mesh)."""
+    import torch
+    from ternary_image_codec_tpu_torch.parallel import mesh as M
+    mesh = M.make_mesh(world)
+    pp = M.make_mesh_pp(world) if "pp" in legs else None
+    return {leg: mesh_leg(torch, pp if leg == "pp" else mesh, leg, sizes)
+            for leg in legs}
+
+
+def dryrun_rank(rank, world):
+    """``dryrun_multichip``'s rank (parallel/dryrun.py) with its K1/K2
+    launches read and every kernel input kept and held to the twin."""
+    import torch
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    from ternary_image_codec_tpu_torch.parallel import dryrun, launch
+    k1_in, k2_in = [], []
+    dec_cuda.launches = 0
+    rs_cuda.launches = 0
+    with kept_inputs(k1_in, k2_in):
+        line = dryrun.dryrun_rank(rank, world)
+    launches = {"check_decode": dec_cuda.launches,
+                "rs_correct": rs_cuda.launches}
+    hold_kept(torch, launch.rank_device(), k1_in, k2_in, "dryrun")
+    return {"summary": line, "launches": launches}
+
+
+def _by_leg(runs, part, out):
+    """Fold per-rank leg results into ``out[f"{part} {leg}"]`` = list of
+    rank results."""
+    for rank, res in enumerate(runs):
+        for leg, r in res.items():
+            out.setdefault(f"{part} {leg}", []).append(r)
+
+
+def phase_mesh(torch, dev, smi_line):
+    """Multi-device on the card through ``parallel/``: (a) one NCCL rank
+    on ``dev``, (b) two gloo ranks sharing it (each launching K1/K2 there),
+    (c) ``dryrun_multichip``'s legs on four gloo ranks sharing it, (d) NCCL
+    with one rank a card where there are two or more, (e) ``channel_qa``
+    on the card against its CPU run.  Launches are read per rank and leg,
+    every kernel input a rank launches is held to the twin in that rank.
+    Returns (launches by leg and rank, times)."""
+    from ternary_image_codec_tpu_torch.cli import channel_qa
+    from ternary_image_codec_tpu_torch.ops import rs_cuda
+    from ternary_image_codec_tpu_torch.parallel import launch
+    torch.cuda.empty_cache()           # the ranks share the card
+    legs = {}
+    t0 = time.perf_counter()
+    # (a) and (b): the same legs, the same results
+    one = launch.spawn(mesh_rank, 1, backend="nccl", device=dev,
+                       args=(MESH_1RANK_LEGS,), timeout_s=MESH_TIMEOUT_S)
+    _by_leg(one, "a nccl x1", legs)
+    s_a = time.perf_counter() - t0
+    print(f"[10a one NCCL rank, {smi_line}] {s_a:.1f} s: {json.dumps(one)}",
+          flush=True)
+    two = launch.spawn(mesh_rank, 2, backend="gloo", device=dev,
+                       args=(MESH_1RANK_LEGS + ["pp"],),
+                       timeout_s=MESH_TIMEOUT_S)
+    _by_leg(two, "b gloo x2", legs)
+    s_b = time.perf_counter() - s_a - t0
+    print(f"[10b two gloo ranks on one card, {smi_line}] {s_b:.1f} s: "
+          f"{json.dumps(two)}", flush=True)
+    same_results(legs, "a nccl x1", "b gloo x2")
+    # (c)
+    four = launch.spawn(dryrun_rank, 4, backend="gloo", device=dev,
+                        timeout_s=MESH_TIMEOUT_S)
+    legs["c gloo x4 dryrun"] = four
+    s_c = time.perf_counter() - s_b - s_a - t0
+    # (d)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        legs.update(mesh_across_cards(torch, n_cards, legs))
+        d_line = f"ran on {n_cards} cards, results equal to (a)"
+    else:
+        d_line = (f"not run: NCCL with more than one rank needs a card a "
+                  f"rank, and {n_cards} card is visible")
+    # (e)
+    k2_in = []
+    rs_cuda.launches = 0
+    with kept_inputs([], k2_in):
+        rc, out_card = run_tool(channel_qa, ["--device", "cuda", "--json"])
+    qa_launches = rs_cuda.launches
+    rc_cpu, out_cpu = run_tool(channel_qa, ["--device", "cpu", "--json"])
+    require(rc == rc_cpu == 0 and out_card == out_cpu,
+            "channel_qa on the card differs from its CPU run")
+    # one decode a (k, error count): 2t + 2 counts for t = 1..4
+    require(qa_launches == len(k2_in) == sum(2 * t + 2 for t in (1, 2, 3, 4)),
+            f"channel_qa launched K2 {qa_launches} times")
+    hold_kept(torch, dev, [], k2_in, "channel_qa")
+    legs["e channel_qa"] = [{"launches": {"check_decode": 0,
+                                          "rs_correct": qa_launches}}]
+    check_mesh_launches(legs)
+    launches = {leg: [r["launches"] for r in rs_] for leg, rs_ in legs.items()}
+    times = {leg: [{k: v for k, v in r.items() if k in ("ms", "s",
+                                                          "peak_bytes")}
+                   for r in rs_] for leg, rs_ in legs.items()
+             if "ms" in rs_[0]}
+    print(f"[10 multi-device] (a) one NCCL rank on {dev}: 8K superframe-DP "
+          f"round trip and fused-DP decode under bench_damage (header cells "
+          f"repaired, overcap flagged) exact and equal to the single-device "
+          f"calls, 1080p frame-DP round trip, repair and stream sharding "
+          f"exact ({s_a:.1f} s); (b) two gloo ranks sharing it: the same, "
+          f"equal to (a), and the 2-stage PP of the 8K frame's superframes "
+          f"clean, repaired and beyond capacity ({s_b:.1f} s); (c) "
+          f"{four[0]['summary']} (four gloo ranks on {dev}, {s_c:.1f} s); "
+          f"(d) {d_line}; (e) channel_qa --device cuda --json equal to its "
+          f"CPU run, K2 {qa_launches} launches; launches by leg and rank "
+          f"{json.dumps(launches)}; every kernel input bit-equal to plain",
+          flush=True)
+    print(f"[10 mesh times] {smi_line}: ms per 8K frame by CUDA events "
+          f"around synchronised calls (least of {MESH_REPS}), per rank; two "
+          f"ranks share one card here, so they are not expected to be "
+          f"faster; host s of each leg's checked run (tables included), peak "
+          f"device memory above the leg's inputs per rank (bytes): "
+          f"{json.dumps(times)}", flush=True)
+    return launches, times
+
+
+def same_results(legs, part, other):
+    """Every leg both parts ran gave the same result digest."""
+    for key, runs in legs.items():
+        if key.startswith(other + " ") and not key.endswith(" pp"):
+            leg = key[len(other) + 1:]
+            ds = {r["digest"] for r in legs[f"{part} {leg}"] + runs}
+            require(len(ds) == 1, f"{leg}: {other} differs from {part} "
+                    f"({ds})")
+
+
+def mesh_across_cards(torch, n_cards, legs):
+    """(d): NCCL with one rank a card on ``n_cards`` cards, the legs of
+    one NCCL rank (``legs`` holds their results) and, with an even count,
+    PP (two data ranks a stage when there are four cards: 2,024 of the
+    frame's superframes); the results equal to one rank's.  Returns the
+    new legs."""
+    from ternary_image_codec_tpu_torch.parallel import launch
+    many = launch.spawn(
+        mesh_rank, n_cards, backend="nccl",
+        args=(MESH_1RANK_LEGS + (["pp"] if n_cards % 2 == 0 else []),
+              MESH_8K if n_cards == 2 else MESH_8K_PP4),
+        timeout_s=MESH_TIMEOUT_S)
+    out = {}
+    _by_leg(many, f"d nccl x{n_cards}", out)
+    same_results({**legs, **out}, "a nccl x1", f"d nccl x{n_cards}")
+    print(f"[10d NCCL, one rank a card on {n_cards} cards] "
+          f"{json.dumps(many)}", flush=True)
+    return out
+
+
+def phase_mesh_cards(torch, dev, smi_line):
+    """(a) and (d) of phase 10 alone, for a machine with several cards:
+    one NCCL rank, then one NCCL rank a card, the results equal."""
+    from ternary_image_codec_tpu_torch.parallel import launch
+    torch.cuda.empty_cache()
+    legs = {}
+    _by_leg(launch.spawn(mesh_rank, 1, backend="nccl", device=dev,
+                         args=(MESH_1RANK_LEGS,), timeout_s=MESH_TIMEOUT_S),
+            "a nccl x1", legs)
+    n_cards = torch.cuda.device_count()
+    require(n_cards >= 2, f"{n_cards} card visible: nothing to compare")
+    legs.update(mesh_across_cards(torch, n_cards, legs))
+    check_mesh_launches(legs)
+    print(f"[10 a, d, {smi_line}] {json.dumps(legs)}", flush=True)
+
+
+def check_mesh_launches(legs):
+    """K1 only where a check decode runs (the fused DP decode's first
+    phase; the dry run's fused legs), K2 in every paged decode: per rank."""
+    for leg, runs in legs.items():
+        for rank, r in enumerate(runs):
+            n = r["launches"]
+            k1, k2 = n["check_decode"], n["rs_correct"]
+            what = f"{leg} rank {rank}: launches {n}"
+            if leg.endswith("pp") and rank < len(runs) // 2:
+                require(k1 == k2 == 0, f"{what} (stage 0 only encodes)")
+            elif leg.endswith(("fused_dp", "dryrun")):
+                require(k1 > 0 and k2 > 0, what)
+            else:
+                require(k1 == 0 and k2 > 0, what)
 
 
 def main():
@@ -1844,6 +2362,7 @@ def main():
     launches_sv, _serve_times = phase_serve(torch, dev, cfg)
     launches_ly, k1_ly, _layout_times = phase_layouts(torch, dev)
     launches_pt, _proto_times = phase_protos(torch, dev)
+    launches_mh, _mesh_times = phase_mesh(torch, dev, smi_line)
     k1_at_sizes = dict(at_sizes["check_decode"])
     k1_at_sizes[f"uep {NONRESIDUE_UEP} n_sf={k1_ly.pop('n_sf')}"] = k1_ly
     k2.update(at_sizes["rs_correct"])
@@ -1862,6 +2381,8 @@ def main():
                               for leg, n in launches_ly.items()},
          "launches_tools": {leg: n["check_decode"]
                             for leg, n in launches_pt.items()},
+         "launches_mesh": {leg: [n["check_decode"] for n in ranks]
+                           for leg, ranks in launches_mh.items()},
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -1877,6 +2398,8 @@ def main():
                               for leg, n in launches_ly.items()},
          "launches_tools": {leg: n["rs_correct"]
                             for leg, n in launches_pt.items()},
+         "launches_mesh": {leg: [n["rs_correct"] for n in ranks]
+                           for leg, ranks in launches_mh.items()},
          "max_abs_err": k2_err,
          "ms": k2_big["ms"], "device_ms": k2_big["device_ms"],
          "plain_ms": k2_big["plain_ms"], "bound_ms": k2_big["bound_ms"],
