@@ -128,6 +128,16 @@ Phases, one output line each:
    held bit-equal to the twin in that rank; ms per 8K frame by CUDA
    events (superframe-DP, fused-DP dirty, PP; the single-device calls
    beside them at world 1) and peak device memory per rank.
+11. the benchmark entry points (``phase_bench``): ``bench/headline.py``
+   (bench.py's clean, e2e and dirty legs on 8K frames), ``rs_bench``,
+   ``full_mode_bench`` and ``serve_bench``, in-process at their defaults,
+   the launch counters set to 0 before each and read after; each must
+   exit 0 (its own exactness checks passed), K1 must launch in the
+   headline's clean, e2e and dirty legs and in serve's read, K2 in the
+   dirty leg, every k of rs_bench and both full-mode legs, the per-leg
+   counts the tools print must add up to the counters, and every kernel
+   input of the tools' kept calls is held bit-equal to the twin; each
+   tool's JSON line is printed after its summary line.
 
 Then a JSON line with each kernel's numbers (``device_ms`` is the
 CUDA-graph time; ``at_path_sizes`` holds the times at the path's own
@@ -135,7 +145,7 @@ sizes, the full strategy's and the frames-batched decode's among them;
 ``launches`` counts phase 5's stream, ``launches_pixel_path`` phase 6's
 run, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
 8's legs, ``launches_tools`` phase 9's tools, ``launches_mesh`` phase 10's
-legs, a count per rank), the
+legs, a count per rank, ``launches_bench`` phase 11's tools by leg), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
 Tolerance everywhere: zero (the codec is integer arithmetic), except the
@@ -523,25 +533,13 @@ def phase_k1(torch, dev, codec, n_sf):
 
 
 def bench_damage(n_sf, total_w, seed=1):
-    """bench.py's dirty model for one frame: D=20 dirty superframes, E=8
-    symbol errors each in distinct bands of the body, and 2 header-cell
-    errors on the last 25% of them (same generator and draw order; bench.py
-    draws with seed 1)."""
-    D, E = min(20, n_sf), 8
-    r2 = np.random.default_rng(seed)
-    si_sf = np.stack([r2.choice(n_sf, D, replace=False)]).reshape(-1)
-    si = np.repeat(si_sf, E)
-    bi = np.stack([r2.choice(9, E, replace=False) for _ in range(D)]).reshape(-1)
-    pi = np.stack([6 + r2.choice(total_w - 6, E, replace=False)
-                   for _ in range(D)]).reshape(-1)
-    dlt = r2.integers(1, 27, size=si.shape)
-    n_hdr = int(round(0.25 * D))
-    sel = np.arange(D)[::-1][:n_hdr]
-    hc = np.stack([r2.choice(52, 2, replace=False) for _ in range(n_hdr)])
-    si = np.concatenate([si, np.repeat(si_sf[sel], 2)])
-    bi = np.concatenate([bi, (hc % 9).reshape(-1)])
-    pi = np.concatenate([pi, (hc // 9).reshape(-1)])
-    dlt = np.concatenate([dlt, r2.integers(1, 27, size=2 * n_hdr)])
+    """bench.py's dirty model for one frame (``bench/damage.py``): D=20
+    dirty superframes, E=8 symbol errors each in distinct bands of the body,
+    and 2 header-cell errors on the last 25% of them.  Returns (dirty
+    superframes, (si, bi, pi, dlt))."""
+    from ternary_image_codec_tpu_torch.bench.damage import damage
+    (_fi, si, bi, pi, dlt), (_fi_sf, si_sf) = damage(n_sf, total_w, frames=1,
+                                                     seed=seed)
     return si_sf, (si, bi, pi, dlt)
 
 
@@ -576,18 +574,14 @@ def k2_real_windows(torch, windows):
 
 def phase_main(torch, dev, cfg):
     import ternary_image_codec_tpu_torch as port
+    from ternary_image_codec_tpu_torch.bench.headline import base_chunks
     from ternary_image_codec_tpu_torch.ops import dec_cuda, gf27, rs_cuda
 
     # one 8K frame of RAW words, trit 26 zero (bench.py's generator)
     n_raw = W8K * H8K // 2
-    r = np.random.default_rng(0)
-    t = r.integers(0, 3, size=(n_raw, 27)).astype(np.int8)
-    t[:, 26] = 0
-    t = t.reshape(n_raw, 9, 3)
-    raw_np = t[..., 0] + 3 * t[..., 1] + 9 * t[..., 2]
-    del t
-    raw = torch.as_tensor(raw_np, device=dev)
     sfw = cfg.superframe_words
+    raw = torch.as_tensor(base_chunks(n_raw, sfw, np.random.default_rng(0))
+                          .reshape(-1, 9)[:n_raw], device=dev)
     n_sf = -(-n_raw // sfw)
 
     def enc():
@@ -686,14 +680,10 @@ def phase_main(torch, dev, cfg):
 
 def damaged(torch, words, seed=1):
     """A copy of wire words (n_sf, total, 9) under ``bench_damage``."""
+    from ternary_image_codec_tpu_torch.bench import damage as dmg
     n_sf, total_w = words.shape[:2]
-    _, (si, bi, pi, dlt) = bench_damage(n_sf, total_w, seed)
-    dev = words.device
-    out_T = words.transpose(1, 2).clone()
-    idx = tuple(torch.as_tensor(a, device=dev) for a in (si, bi, pi))
-    out_T[idx] = ((out_T[idx].to(torch.int16)
-                   + torch.as_tensor(dlt, device=dev)) % 27).to(torch.int8)
-    return out_T.transpose(1, 2)
+    ev, _dirty = dmg.damage(n_sf, total_w, frames=1, seed=seed)
+    return dmg.apply(words.transpose(1, 2)[None], ev)[0].transpose(1, 2)
 
 
 def rgb_frame(torch, dev):
@@ -970,147 +960,22 @@ def serve_frames(torch, cfg, n_raw, n_frames, dev, seed=6):
     return out
 
 
-@contextlib.contextmanager
-def timed_crc(split):
-    """Inside the block, every container CRC of the serve module adds its
-    host ms to ``split["crc"]``."""
-    from ternary_image_codec_tpu_torch.io import serve
-    crc = serve._crc32
-
-    def timed(data, init=0):
-        t0 = time.perf_counter()
-        out = crc(data, init)
-        split["crc"] += (time.perf_counter() - t0) * 1e3
-        return out
-    serve._crc32 = timed
-    try:
-        yield
-    finally:
-        serve._crc32 = crc
-
-
-@contextlib.contextmanager
-def _span(torch, spans, key):
-    """CUDA timing events around the block on the current stream, kept in
-    ``spans`` as (key, start, end); nothing when ``spans`` is None (a run
-    on the CPU)."""
-    if spans is None:
-        yield
-        return
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    yield
-    end.record()
-    spans.append((key, start, end))
-
-
-def _span_ms(torch, spans, split):
-    """Device ms of the kept spans, summed by key into ``split``."""
-    if spans:
-        torch.cuda.synchronize()
-    for key, start, end in spans or ():
-        split[key] = split.get(key, 0.0) + start.elapsed_time(end)
-    return split
-
-
 def serve_write(torch, cfg, n_raw, frames, path, dev, w=W8K, h=H8K):
-    """The serve loop's write direction through ``StreamExecutor``
-    (``prefetch`` 2): per frame, H2D of the host chunks on the loader's
-    stream, ``enc_serve`` (encode and wire pack) dispatched on the caller's,
-    D2H of the packed bytes into one pinned buffer on the writer's, then
-    the T3V6 writer (CRC and file write) straight from that buffer.
-    Returns (wire checksums per frame, ms split: h2d, device, d2h (device
-    time by CUDA events), crc, io (host clock), wall ms of the loop with
-    the file's close)."""
-    from ternary_image_codec_tpu_torch.io import serve
-    from ternary_image_codec_tpu_torch.runtime.executor import StreamExecutor
-    enc, _dec, geom = serve.serve_codec_fns(cfg, n_raw, device=dev)
-    cuda = dev.type == "cuda"
-    host = torch.empty((geom["n_sf"], geom["sf_bytes"]), dtype=torch.uint8,
-                       pin_memory=cuda)
-    cks, spans = [None] * len(frames), [] if cuda else None
-    split = {"crc": 0.0, "write_frame": 0.0}
-
-    def load(i):
-        with _span(torch, spans, "h2d"):
-            return i, frames[i].to(dev, non_blocking=True)
-
-    def device_fn(x):
-        i, chunks = x
-        with _span(torch, spans, "device"):
-            by, ck = enc(chunks)
-        return i, by, ck
-
-    def write(_index, y):
-        i, by, ck = y
-        with _span(torch, spans, "d2h"):
-            host.copy_(by, non_blocking=cuda)
-        if cuda:
-            torch.cuda.current_stream(dev).synchronize()   # this stream only
-        cks[i] = int(ck)
-        t0 = time.perf_counter()
-        wtr.write_frame(i, host.numpy())
-        split["write_frame"] += (time.perf_counter() - t0) * 1e3
-
-    with timed_crc(split):
-        t0 = time.perf_counter()
-        wtr = serve.T3V6StreamWriter(
-            path, cfg.subword, w, h, len(frames), geom["frame_bytes"],
-            meta_global=serve.serve_meta_global(cfg, n_raw, w, h),
-            meta_per_frame=SERVE_META)
-        with wtr:
-            StreamExecutor(load, device_fn, write, SERVE_PREFETCH,
-                           device=dev).run(range(len(frames)))
-        wall = (time.perf_counter() - t0) * 1e3
-    split["io"] = split.pop("write_frame") - split["crc"]
-    return cks, _span_ms(torch, spans, split), wall
+    """The serve loop's write direction, one frame an executor item
+    (``bench/serve_bench.serve_write``): (wire checksums per frame, ms
+    split, wall ms)."""
+    from ternary_image_codec_tpu_torch.bench import serve_bench
+    return serve_bench.serve_write(cfg, n_raw, frames, path, dev, w, h,
+                                   meta=SERVE_META, prefetch=SERVE_PREFETCH)
 
 
 def serve_read(torch, cfg, n_raw, path, dev, approve):
-    """The serve loop's read direction through ``StreamExecutor``
-    (``prefetch`` 2): per frame, the gated read of its payload (``approve``
-    sees the meta first) and the CRC check into a pinned buffer, H2D on
-    the loader's stream, ``dec_serve`` (unpack, K1 check decode,
-    checksums) on the caller's, the three results read on the writer's.
-    Returns ({frame: (ok, wire checksum, out checksum)}, ms split: h2d,
-    device (CUDA events), crc, io (host clock), wall ms of the loop)."""
-    from ternary_image_codec_tpu_torch.io import serve
-    from ternary_image_codec_tpu_torch.runtime.executor import StreamExecutor
-    _enc, dec, geom = serve.serve_codec_fns(cfg, n_raw, device=dev)
-    n_sf, nb = geom["n_sf"], geom["sf_bytes"]
-    cuda = dev.type == "cuda"
-    results, spans = {}, [] if cuda else None
-    split = {"crc": 0.0, "read": 0.0}
-
-    def load(i):
-        buf = torch.empty(geom["frame_bytes"], dtype=torch.uint8,
-                          pin_memory=cuda)
-        t0 = time.perf_counter()
-        rd.read_frame_into(i, buf.numpy())
-        split["read"] += (time.perf_counter() - t0) * 1e3
-        with _span(torch, spans, "h2d"):
-            return i, buf[:n_sf * nb].view(n_sf, nb).to(dev,
-                                                         non_blocking=True)
-
-    def device_fn(x):
-        i, by = x
-        with _span(torch, spans, "device"):
-            ok, wck, ock = dec(by)
-        return i, ok, wck, ock
-
-    def write(_index, y):
-        i, ok, wck, ock = y
-        results[i] = (bool(ok), int(wck), int(ock))
-
-    with timed_crc(split):
-        t0 = time.perf_counter()
-        with serve.T3V6StreamReader(path, approve_meta=approve) as rd:
-            StreamExecutor(load, device_fn, write, SERVE_PREFETCH,
-                           device=dev).run(range(rd.frame_count))
-        wall = (time.perf_counter() - t0) * 1e3
-    split["io"] = split.pop("read") - split["crc"]
-    return results, _span_ms(torch, spans, split), wall
+    """The serve loop's read direction, one frame an executor item
+    (``bench/serve_bench.serve_read``): ({frame: (ok, wire checksum, out
+    checksum)}, ms split, wall ms)."""
+    from ternary_image_codec_tpu_torch.bench import serve_bench
+    return serve_bench.serve_read(cfg, n_raw, path, dev, approve,
+                                  prefetch=SERVE_PREFETCH)
 
 
 def serve_checks(torch, cfg, n_raw, frames, path, dev, cks, results):
@@ -1667,13 +1532,13 @@ def proto_files(torch, rgb, dev, want_rgb, d):
     return paths, ms
 
 
-def run_tool(mod, argv):
-    """A CLI tool's ``main(argv)`` with its standard output captured:
+def run_tool(mod, argv, **kw):
+    """A CLI tool's ``main(argv, **kw)`` with its standard output captured:
     (exit code, output)."""
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = mod.main(argv)
+        rc = mod.main(argv, **kw)
     return rc, buf.getvalue()
 
 
@@ -2344,6 +2209,89 @@ def check_mesh_launches(legs):
                 require(k1 == 0 and k2 > 0, what)
 
 
+
+# --- phase 11: the benchmark entry points ------------------------------------
+
+BENCH_TOOLS = ("headline", "rs_bench", "full_mode_bench", "serve_bench")
+# the legs whose runs must launch each kernel
+BENCH_K1_LEGS = {"headline": ("clean", "e2e", "dirty"),
+                 "serve_bench": ("read",)}
+BENCH_K2_LEGS = {"headline": ("dirty",),
+                 "rs_bench": ("k24", "k22", "k20", "k18"),
+                 "full_mode_bench": ("clean", "dirty")}
+
+
+def bench_keep(torch, dev, held):
+    """``keep(leg)`` for the bench tools: inside the block every K1 and K2
+    input is kept (``kept_inputs``); on leaving it, each is held bit-equal
+    to the kernel's twin (those launches are taken back off the counters)
+    and ``held[leg]`` gets the counts."""
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+
+    @contextlib.contextmanager
+    def keep(leg):
+        k1_in, k2_in = [], []
+        with kept_inputs(k1_in, k2_in):
+            yield
+        n1, n2 = dec_cuda.launches, rs_cuda.launches
+        hold_kept(torch, dev, k1_in, k2_in, f"bench {leg}")
+        dec_cuda.launches, rs_cuda.launches = n1, n2
+        held[leg] = {"check_decode": len(k1_in), "rs_correct": len(k2_in)}
+    return keep
+
+
+def phase_bench(torch, dev, smi_line):
+    """The four benchmark entry points of ``bench/`` in-process on the card
+    at their defaults, each with the launch counters set to 0 just before
+    it and read just after: every exactness check of the tools must pass
+    (exit 0), K1 must launch in the headline's clean, e2e and dirty legs and
+    in serve's read, K2 in the dirty leg, in every k of rs_bench and in both
+    full-mode legs, the per-leg counts the tools print must add up to the
+    counters, and every kernel input of the kept calls (the clean and e2e
+    warm-up batches, the dirty leg's checked decode, each k's checked paged
+    run, each full-mode leg's first decode, serve's read pass) is held
+    bit-equal to the twin.  Prints each tool's JSON line.  Returns
+    {tool: {leg: launches}}."""
+    import importlib
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    torch.cuda.empty_cache()
+    out = {}
+    for name in BENCH_TOOLS:
+        tool = importlib.import_module(
+            f"ternary_image_codec_tpu_torch.bench.{name}")
+        held = {}
+        t0 = time.perf_counter()
+        dec_cuda.launches = 0
+        rs_cuda.launches = 0
+        rc, text = run_tool(tool, [], keep=bench_keep(torch, dev, held))
+        launches = {"check_decode": dec_cuda.launches,
+                    "rs_correct": rs_cuda.launches}
+        require(rc == 0, f"bench {name}: exit {rc}")
+        line = text.strip().splitlines()[-1]
+        res = json.loads(line)
+        legs = {leg: {"check_decode": res["k1_launches"][leg],
+                      "rs_correct": res["k2_launches"][leg]}
+                for leg in res["k1_launches"]}
+        for kernel in launches:
+            require(sum(n[kernel] for n in legs.values()) == launches[kernel],
+                    f"bench {name}: per-leg {kernel} launches {legs} do not "
+                    f"add up to the counter's {launches[kernel]}")
+        for leg in BENCH_K1_LEGS.get(name, ()):
+            require(legs[leg]["check_decode"] > 0,
+                    f"bench {name} {leg}: K1 never launched ({legs})")
+        for leg in BENCH_K2_LEGS.get(name, ()):
+            require(legs[leg]["rs_correct"] > 0,
+                    f"bench {name} {leg}: K2 never launched ({legs})")
+        require(held, f"bench {name}: no kernel input was kept")
+        out[name] = legs
+        print(f"[11 bench {name}, {smi_line}] {time.perf_counter() - t0:.1f} "
+              f"s, every check passed; launches by leg {json.dumps(legs)}; "
+              f"kept inputs held bit-equal to the twins {json.dumps(held)}; "
+              f"its JSON line:", flush=True)
+        print(line, flush=True)
+    return out
+
+
 def main():
     import torch
     name, smi_line = phase_device(torch)
@@ -2363,6 +2311,7 @@ def main():
     launches_ly, k1_ly, _layout_times = phase_layouts(torch, dev)
     launches_pt, _proto_times = phase_protos(torch, dev)
     launches_mh, _mesh_times = phase_mesh(torch, dev, smi_line)
+    launches_bn = phase_bench(torch, dev, smi_line)
     k1_at_sizes = dict(at_sizes["check_decode"])
     k1_at_sizes[f"uep {NONRESIDUE_UEP} n_sf={k1_ly.pop('n_sf')}"] = k1_ly
     k2.update(at_sizes["rs_correct"])
@@ -2383,6 +2332,9 @@ def main():
                             for leg, n in launches_pt.items()},
          "launches_mesh": {leg: [n["check_decode"] for n in ranks]
                            for leg, ranks in launches_mh.items()},
+         "launches_bench": {tool: {leg: n["check_decode"]
+                                   for leg, n in legs.items()}
+                            for tool, legs in launches_bn.items()},
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -2400,6 +2352,9 @@ def main():
                             for leg, n in launches_pt.items()},
          "launches_mesh": {leg: [n["rs_correct"] for n in ranks]
                            for leg, ranks in launches_mh.items()},
+         "launches_bench": {tool: {leg: n["rs_correct"]
+                                   for leg, n in legs.items()}
+                            for tool, legs in launches_bn.items()},
          "max_abs_err": k2_err,
          "ms": k2_big["ms"], "device_ms": k2_big["device_ms"],
          "plain_ms": k2_big["plain_ms"], "bound_ms": k2_big["bound_ms"],

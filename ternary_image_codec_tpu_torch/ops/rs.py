@@ -302,6 +302,13 @@ def slot_merge(pdirty: torch.Tensor, C: int):
     return rank.clamp(0, C - 1).to(torch.int64), pdirty & (rank < C)
 
 
+def pick_page(nblk: int, lo: int = 8, hi: int = 64, target: int = 24):
+    """The divisor of nblk in [lo, hi] nearest ``target`` (the smaller of
+    two as near); None when nblk has none."""
+    cands = [d for d in range(lo, hi + 1) if nblk % d == 0]
+    return min(cands, key=lambda d: abs(d - target)) if cands else None
+
+
 def decode_paged_pm_bk(recv_bk: torch.Tensor, k: int, page: int = 256,
                        max_dirty_pages: int | None = None, maps=None):
     """Page-compacted decode of block-minor digits (3, B, 26) -> ((3, B, k),

@@ -14,6 +14,8 @@ import torch
 
 import ternary_image_codec_tpu_torch as port
 from ternary_image_codec_tpu_torch import profiles
+from ternary_image_codec_tpu_torch.bench import (full_mode_bench, headline,
+                                                 rs_bench, serve_bench)
 from ternary_image_codec_tpu_torch.cli import demo_write_video, main_bare
 from ternary_image_codec_tpu_torch.codec import codec_for, resolve_device
 from ternary_image_codec_tpu_torch.io import formats, image, serve, video
@@ -101,10 +103,22 @@ def _calls(tmp):
         "make_frames": lambda: demo_write_video.make_frames(16, 8, 1),
         "spawn": lambda: launch.spawn(dryrun.dryrun_rank, 1, timeout_s=300),
         "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
+        # the benchmark tools, without --device
+        "bench.headline": lambda: headline.main(
+            ["--wh", "512x128", "--iters", "1", "--dirty-iters", "1",
+             "--dirty-d", "2"]),
+        "bench.rs_bench": lambda: rs_bench.main(
+            ["--blocks", "1024", "--iters", "1", "--errors", "16"]),
+        "bench.full_mode_bench": lambda: full_mode_bench.main(
+            ["--wh", "512x128", "--iters", "1"]),
+        "bench.serve_bench": lambda: serve_bench.main(
+            ["--frames", "1", "--group", "1", "--wh", "256x128", "--path",
+             str(tmp / "serve.t3v")]),
     }
 
 
-ENTRIES = ["FFVideoWriter", "SuperframeCodec", "codec_for",
+ENTRIES = ["FFVideoWriter", "SuperframeCodec", "bench.full_mode_bench",
+           "bench.headline", "bench.rs_bench", "bench.serve_bench", "codec_for",
            "decode_frames_fused", "decode_header_from_words",
            "decode_profile_to_raw", "decode_stream_superframes",
            "dryrun_multichip", "encode_profile_from_raw",
@@ -121,7 +135,9 @@ ENTRIES = ["FFVideoWriter", "SuperframeCodec", "codec_for",
 
 # entry points whose result is host data (files, numpy, flags): on the card
 # they must run and, where they decode, launch a kernel there
-HOST_RESULTS = {"decode_header_from_words", "dryrun_multichip",
+HOST_RESULTS = {"bench.full_mode_bench", "bench.headline", "bench.rs_bench",
+                "bench.serve_bench", "decode_header_from_words",
+                "dryrun_multichip",
                 "encode_prototype_ternary", "spawn",
                 "selftest_api_roundtrip", "selftest_rs_unit",
                 "words_to_image_file", "words_to_image_subword",
@@ -145,6 +161,11 @@ def test_default_device_is_the_card(entry, tmp_path):
             assert out[1] and rs_cuda.launches > before
         elif entry in ("selftest_rs_unit", "selftest_api_roundtrip"):
             assert out and rs_cuda.launches > before
+        elif entry.startswith("bench."):
+            # a tool's exit code: its checks passed on the card
+            assert out == 0
+            if entry != "bench.serve_bench":
+                assert rs_cuda.launches > before
         elif entry == "FFVideoWriter":
             assert out.device.type == "cuda"
         elif entry == "proto_aniso_rc_encode":

@@ -34,7 +34,9 @@ def test_import_leaves_jax_out():
                  "cli.minitest_t3containers", "cli.main_video_t3v",
                  "cli.demo_write_video", "cli.channel_qa", "parallel",
                  "parallel.launch", "parallel.mesh", "parallel.dryrun",
-                 "parallel.probe"):
+                 "parallel.probe", "bench", "bench.damage", "bench.headline",
+                 "bench.rs_bench", "bench.full_mode_bench",
+                 "bench.serve_bench"):
         assert f"ternary_image_codec_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
