@@ -138,6 +138,18 @@ Phases, one output line each:
    counts the tools print must add up to the counters, and every kernel
    input of the tools' kept calls is held bit-equal to the twin; each
    tool's JSON line is printed after its summary line.
+12. the single-device entry step (``phase_entry``): ``entry.entry()`` on the card
+   (the profile encode of one 720p frame, 460,800 RAW words, P2 with
+   luma-priority UEP and a period-13 beacon in band 4), its build (host
+   tables) by host clock, one cold and ten warm steps by CUDA events and
+   the step's peak device memory; the (576868, 9) int8 output equal to the
+   CPU step's on the same input and to a second call; the decode back on
+   the card (``decode_profile_to_raw``: K2 for the header chain and the
+   paged repair, the grid check) exact clean and under a damage pattern
+   fixed by its seed (at most t errors in codewords of three bands, the
+   beacon band among them, one header cell, beacon cells), and an overcap
+   copy flagged; no kernel in the step, K2 and never K1 in each decode,
+   every K2 input held bit-equal to the twin.
 
 Then a JSON line with each kernel's numbers (``device_ms`` is the
 CUDA-graph time; ``at_path_sizes`` holds the times at the path's own
@@ -145,7 +157,8 @@ sizes, the full strategy's and the frames-batched decode's among them;
 ``launches`` counts phase 5's stream, ``launches_pixel_path`` phase 6's
 run, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
 8's legs, ``launches_tools`` phase 9's tools, ``launches_mesh`` phase 10's
-legs, a count per rank, ``launches_bench`` phase 11's tools by leg), the
+legs, a count per rank, ``launches_bench`` phase 11's tools by leg,
+``launches_entry`` phase 12's step and decodes), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
 Tolerance everywhere: zero (the codec is integer arithmetic), except the
@@ -153,6 +166,7 @@ spectral sketch's float32 DCT (at most 2 of 64 trits, as the reference's
 own test allows against the C++).
 """
 import contextlib
+import functools
 import json
 import subprocess
 import sys
@@ -1127,6 +1141,20 @@ def phase_serve(torch, dev, cfg):
           f"streams, crc and io by the host clock", flush=True)
     return launches, times
 
+def counted_leg(legs, k1_in, k2_in, name, fn):
+    """fn() with the K1 and K2 launch counters set to 0 just before it and
+    read into ``legs[name]`` just after; every kernel input of it is kept
+    (``kept_inputs``)."""
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    dec_cuda.launches = 0
+    rs_cuda.launches = 0
+    with kept_inputs(k1_in, k2_in):
+        out = fn()
+    legs[name] = {"check_decode": dec_cuda.launches,
+                  "rs_correct": rs_cuda.launches}
+    return out
+
+
 def raw_frame(torch, dev, n_raw=W8K * H8K // 2, seed=0):
     """One frame of ``n_raw`` seeded RAW words (n_raw, 9) int8 on ``dev``,
     trit 26 zero (bench.py's generator)."""
@@ -1176,14 +1204,20 @@ def _add_sym(torch, words, idx, e):
         gf27.sym_to_dig(cell).to(torch.int16) + gf27.sym_to_dig(e)))
 
 
+def beacon_row(j, period):
+    """The body row of the beacon band's payload symbol j (codeword j // 26,
+    coefficient j % 26): the rows that are multiples of the period hold
+    the beacon cells."""
+    return j + j // (period - 1) + 1
+
+
 def beacon_page_damage(torch, words_T, sf, pages, period, band):
     """One symbol error in each of the first ``pages`` 16-block pages of
     the beacon band of superframe ``sf`` (coefficient 3 of each page's
     first codeword, on its payload row r = j + j//(p-1) + 1), in place in
     wire planes (n_sf, 9, 6 + H)."""
     for pg in range(pages):
-        j = pg * 16 * 26 + 3
-        row = j + j // (period - 1) + 1
+        row = beacon_row(pg * 16 * 26 + 3, period)
         _add_sym(torch, words_T, (sf, band, 6 + row), 1 + pg % 26)
 
 
@@ -1208,15 +1242,7 @@ def phase_layouts(torch, dev):
     raw = raw_frame(torch, dev, n_raw)
     legs, times, peaks = {}, {}, {}
     k1_in, k2_in = [], []
-
-    def counted(name, fn):
-        dec_cuda.launches = 0
-        rs_cuda.launches = 0
-        with kept_inputs(k1_in, k2_in):
-            out = fn()
-        legs[name] = {"check_decode": dec_cuda.launches,
-                      "rs_correct": rs_cuda.launches}
-        return out
+    counted = functools.partial(counted_leg, legs, k1_in, k2_in)
 
     def dec(cfg, w, strategy, n=n_raw):
         return port.decode_stream_superframes(
@@ -2292,6 +2318,131 @@ def phase_bench(torch, dev, smi_line):
     return out
 
 
+# --- phase 12: the single-device entry step -----------------------------------
+
+ENTRY_BANDS = (0, 5, 4)    # a k=20 band, a k=22 band and the beacon band
+ENTRY_BLOCKS = 3           # damaged codewords a band: within the paged capacity
+ENTRY_BEACON_CELLS = 5
+ENTRY_SEED = 12
+ENTRY_REPS = 10            # warm steps timed
+
+
+def entry_damage(torch, words, seed=ENTRY_SEED):
+    """Copies (dirty, overcap) of the step's profile words (6 + H, 9) under
+    a damage pattern fixed by ``seed``.  dirty: in each band of
+    ``ENTRY_BANDS``, ``ENTRY_BLOCKS`` codewords with 1..t symbol errors
+    each at distinct coefficients; one header cell; ``ENTRY_BEACON_CELLS``
+    beacon cells (never read).  overcap: dirty and t+1 errors in one more
+    codeword of band ``ENTRY_BANDS[0]``.  A t+1 pattern is miscorrected
+    with some probability, so the pattern stays fixed by its seed."""
+    from ternary_image_codec_tpu_torch.entry import CFG, N_RAW
+    from ternary_image_codec_tpu_torch.ops import pipeline
+    geom = pipeline.build_encode_layout(CFG, N_RAW).geom
+    beacon, hw = CFG.beacon, pipeline.HEADER_WORDS
+    rng = np.random.default_rng(seed)
+    t = lambda band: (26 - geom.ks[band]) // 2
+    p = beacon.words_period
+
+    def hit(w, band, block, nerr):
+        # P2 has no interleave: codeword c of a uniform band is rows 26c
+        # to 26c + 25
+        for pos in rng.choice(26, nerr, replace=False):
+            j = 26 * block + int(pos)
+            row = beacon_row(j, p) if band == beacon.band_slot else j
+            _add_sym(torch, w, (hw + row, band), int(rng.integers(1, 27)))
+
+    dirty, used = words.clone(), {}
+    for band in ENTRY_BANDS:
+        used[band] = rng.choice(geom.blocks[band], ENTRY_BLOCKS, replace=False)
+        for block in used[band]:
+            hit(dirty, band, int(block), int(rng.integers(1, t(band) + 1)))
+    cell = int(rng.integers(pipeline.HEADER_SYMS))
+    _add_sym(torch, dirty, divmod(cell, 9), int(rng.integers(1, 27)))
+    for m in rng.choice(geom.H // p, ENTRY_BEACON_CELLS, replace=False):
+        _add_sym(torch, dirty, (hw + int(m) * p, beacon.band_slot),
+                 int(rng.integers(1, 27)))
+    overcap, band = dirty.clone(), ENTRY_BANDS[0]
+    block = next(int(b) for b in rng.permutation(geom.blocks[band])
+                 if b not in used[band])
+    hit(overcap, band, block, t(band) + 1)
+    return dirty, overcap
+
+
+def phase_entry(torch, dev, smi_line):
+    """The single-device entry step (``entry.entry``) on the card: the
+    build (host tables) by host clock, one cold and ``ENTRY_REPS`` warm
+    steps by CUDA events and the step's peak device memory; its output
+    bit-equal to the CPU step's on the same input and the same on a second
+    call; ``decode_profile_to_raw`` on the card of it clean, under
+    ``entry_damage`` (exact, ok True) and of the overcap copy (ok False).
+    The launch counters are set to 0 before each leg and read after: no
+    kernel in the step, K2 and never K1 in each decode (a beacon layout's
+    check is the plain grid check); every K2 input of the decodes is held
+    bit-equal to the twin.  Returns (launches by leg, times)."""
+    from ternary_image_codec_tpu_torch import entry as E
+    from ternary_image_codec_tpu_torch.ops import pipeline
+    torch.cuda.empty_cache()
+    legs, times, k1_in, k2_in = {}, {}, [], []
+    counted = functools.partial(counted_leg, legs, k1_in, k2_in)
+    t0 = time.perf_counter()
+    fn, (raw,) = E.entry()
+    torch.cuda.synchronize()
+    times["build s"] = time.perf_counter() - t0
+    require(raw.device == dev and raw.shape == (E.N_RAW, 9),
+            f"entry: raw {tuple(raw.shape)} on {raw.device}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    words = counted("step", lambda: fn(raw))
+    end.record()
+    torch.cuda.synchronize()
+    times["cold ms"] = start.elapsed_time(end)
+    times["peak bytes"] = torch.cuda.max_memory_allocated(dev) - base
+    times["warm ms"] = cuda_ms(torch, lambda: fn(raw), ENTRY_REPS)
+    require(words.device == dev and words.dtype == torch.int8
+            and words.shape == (576868, 9),
+            f"entry: step gave {words.dtype} {tuple(words.shape)} on "
+            f"{words.device}")
+    require(torch.equal(fn(raw), words), "entry: a second step differs")
+    cpu_fn, _ = E.entry(device="cpu")
+    require(torch.equal(words.cpu(), cpu_fn(raw.cpu())),
+            "entry: the card's step differs from the CPU's")
+
+    dirty, overcap = entry_damage(torch, words)
+    for name, w, want_ok in (("clean", words, True), ("damaged", dirty, True),
+                             ("overcap", overcap, False)):
+        ms, (out, hdr, ok) = counted(name, lambda w=w: wall_ms(
+            torch, lambda: pipeline.decode_profile_to_raw(w)))
+        times[f"decode {name} ms"] = ms
+        require(hdr is not None and pipeline.header_config(hdr) == E.CFG,
+                f"entry decode {name}: header {hdr}")
+        require(ok == want_ok, f"entry decode {name}: ok is {ok}")
+        if want_ok:
+            require(out.device == dev and torch.equal(out[:E.N_RAW], raw),
+                    f"entry decode {name}: words differ")
+    require(legs["step"] == {"check_decode": 0, "rs_correct": 0},
+            f"entry step launched a kernel: {legs['step']}")
+    for name in ("clean", "damaged", "overcap"):
+        require(legs[name]["check_decode"] == 0 and legs[name]["rs_correct"] > 0,
+                f"entry decode {name}: launches {legs[name]}")
+    require(not k1_in and len(k2_in) == sum(n["rs_correct"]
+                                            for n in legs.values()),
+            f"launches {legs} but {len(k1_in)} K1 and {len(k2_in)} K2 "
+            "inputs kept")
+    hold_kept(torch, dev, k1_in, k2_in, "the entry step")
+    print(f"[12 entry, {smi_line}] the single-device entry step: {E.N_RAW} RAW words "
+          f"(720p, P2, luma UEP, beacon {E.CFG.beacon.words_period} in band "
+          f"{E.CFG.beacon.band_slot}) -> {tuple(words.shape)} int8, equal to "
+          f"the CPU step and on a second call; decode back exact clean and "
+          f"damaged ({len(ENTRY_BANDS)} bands, one header cell, "
+          f"{ENTRY_BEACON_CELLS} beacon cells), overcap flagged; launches by "
+          f"leg {json.dumps(legs)}; {len(k2_in)} K2 inputs held bit-equal to "
+          f"the twin; times {json.dumps(times)}", flush=True)
+    return legs, times
+
+
 def main():
     import torch
     name, smi_line = phase_device(torch)
@@ -2312,6 +2463,7 @@ def main():
     launches_pt, _proto_times = phase_protos(torch, dev)
     launches_mh, _mesh_times = phase_mesh(torch, dev, smi_line)
     launches_bn = phase_bench(torch, dev, smi_line)
+    launches_en, _entry_times = phase_entry(torch, dev, smi_line)
     k1_at_sizes = dict(at_sizes["check_decode"])
     k1_at_sizes[f"uep {NONRESIDUE_UEP} n_sf={k1_ly.pop('n_sf')}"] = k1_ly
     k2.update(at_sizes["rs_correct"])
@@ -2335,6 +2487,8 @@ def main():
          "launches_bench": {tool: {leg: n["check_decode"]
                                    for leg, n in legs.items()}
                             for tool, legs in launches_bn.items()},
+         "launches_entry": {leg: n["check_decode"]
+                            for leg, n in launches_en.items()},
          "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
@@ -2355,6 +2509,8 @@ def main():
          "launches_bench": {tool: {leg: n["rs_correct"]
                                    for leg, n in legs.items()}
                             for tool, legs in launches_bn.items()},
+         "launches_entry": {leg: n["rs_correct"]
+                            for leg, n in launches_en.items()},
          "max_abs_err": k2_err,
          "ms": k2_big["ms"], "device_ms": k2_big["device_ms"],
          "plain_ms": k2_big["plain_ms"], "bound_ms": k2_big["bound_ms"],

@@ -71,6 +71,7 @@ from . import dec_cuda, header as header_mod, interleave, rs, scramble
 from .gf27 import dig_to_sym, mod3, np_sym_to_dig, sym_to_dig
 
 HEADER_WORDS = 6
+HEADER_SYMS = 52                 # the 2 RS(26,18) header codewords
 _PROFILE_KS = (24, 22, 20, 18)   # band_profile index 0..3 -> k
 PAGE = 16                        # blocks per page of the paged corrector
 SROWS = 8                        # one r=8 syndrome map serves every band
@@ -950,8 +951,7 @@ def decode_header_from_words(words, device=None):
     w = torch.as_tensor(words).to(resolve_device(device))
     if w.shape[0] < HEADER_WORDS:
         return None, False
-    sy = w[:HEADER_WORDS].reshape(-1)
-    blocks = torch.stack([sy[:26], sy[26:52]])
+    blocks = w[:HEADER_WORDS].reshape(-1)[:HEADER_SYMS].view(2, rs.N)
     data, ok = rs.decode_dig(sym_to_dig(blocks), 18)        # (2, 18, 3)
     if not bool(ok.all()):
         return None, False

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import ternary_image_codec_tpu_torch as port
+from ternary_image_codec_tpu_torch import entry as step_entry
 from ternary_image_codec_tpu_torch import profiles
 from ternary_image_codec_tpu_torch.bench import (full_mode_bench, headline,
                                                  rs_bench, serve_bench)
@@ -103,6 +104,7 @@ def _calls(tmp):
         "make_frames": lambda: demo_write_video.make_frames(16, 8, 1),
         "spawn": lambda: launch.spawn(dryrun.dryrun_rank, 1, timeout_s=300),
         "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
+        "entry": lambda: step_entry.entry(),
         # the benchmark tools, without --device
         "bench.headline": lambda: headline.main(
             ["--wh", "512x128", "--iters", "1", "--dirty-iters", "1",
@@ -123,7 +125,7 @@ ENTRIES = ["FFVideoWriter", "SuperframeCodec", "bench.full_mode_bench",
            "decode_profile_to_raw", "decode_stream_superframes",
            "dryrun_multichip", "encode_profile_from_raw",
            "encode_prototype_ternary",
-           "encode_stream_superframes", "image_file_to_words",
+           "encode_stream_superframes", "entry", "image_file_to_words",
            "image_to_words_subword", "make_frames", "proto_aniso_rc_encode",
            "proto_aniso_rc_reconstruct", "proto_reconstruct_y_from_tiles",
            "proto_spectral_sketch", "proto_tile_haar_ternary", "rgb_to_words",
@@ -172,6 +174,9 @@ def test_default_device_is_the_card(entry, tmp_path):
             assert out.trits.device.type == "cuda"
         elif entry == "make_frames":
             assert out[0].device.type == "cuda"
+        elif entry == "entry":
+            fn, (raw,) = out
+            assert raw.device.type == "cuda" and fn(raw).device.type == "cuda"
         elif entry not in HOST_RESULTS:
             assert first.device.type == "cuda"
     else:

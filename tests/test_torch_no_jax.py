@@ -1,5 +1,6 @@
-"""The PyTorch port imports neither jax nor anything of the JAX package:
-not when imported, not in its code, not in its scripts."""
+"""The PyTorch port imports neither jax nor anything of the JAX package,
+nor the JAX package's entry points in ``__graft_entry__.py``: not when
+imported, not in its code, not in its scripts."""
 import ast
 import pathlib
 import subprocess
@@ -13,6 +14,7 @@ PKG = ROOT / "ternary_image_codec_tpu_torch"
 SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "profile_port.py",
            ROOT / "tests" / "torch_mesh_ranks.py"]
 REF = "ternary_image_codec_tpu"
+GRAFT = "__graft_entry__"     # the JAX package's entry points
 
 
 def _submodules():
@@ -36,13 +38,13 @@ def test_import_leaves_jax_out():
                  "parallel.launch", "parallel.mesh", "parallel.dryrun",
                  "parallel.probe", "bench", "bench.damage", "bench.headline",
                  "bench.rs_bench", "bench.full_mode_bench",
-                 "bench.serve_bench"):
+                 "bench.serve_bench", "entry"):
         assert f"ternary_image_codec_tpu_torch.{name}" in mods, name
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"ref = {REF!r}\n"
-            "print(sorted(m for m in sys.modules if m in ('jax', ref) "
-            "or m.startswith(('jax.', ref + '.'))))")
+            "print(sorted(m for m in sys.modules if m in ('jax', ref, "
+            f"{GRAFT!r}) or m.startswith(('jax.', ref + '.'))))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -65,6 +67,7 @@ def test_no_jax_import_in_source(path):
     for name in _imports(path):
         assert name != "jax" and not name.startswith("jax."), name
         assert name != REF and not name.startswith(REF + "."), name
+        assert name != GRAFT, name
 
 
 def test_native_library_is_the_ports_own():
