@@ -1,0 +1,7 @@
+"""k1_roofline: K1 (``csrc/check_decode.cu``) against its memory bound,
+``rooflines/check_decode.json``."""
+from t3bench.lib import roofline
+
+
+def read(ctx):
+    return roofline.share(ctx, "check_decode")
