@@ -18,6 +18,7 @@ from .config import EncoderConfig
 from .ops import encode as encode_mod
 from .ops import pipeline
 from .ops.pipeline import HEADER_WORDS
+from .runtime import tracing
 
 
 def resolve_device(device) -> torch.device:
@@ -72,9 +73,15 @@ class SuperframeCodec(nn.Module):
         """RAW chunks (n_sf, n_raw_words, 9) -> wire planes
         (n_sf, 9, 6 + H), ``sf_batch`` superframes at a time."""
         T = self.tables()
-        chunks = chunks.to(self.device, torch.int8)
-        return torch.cat([encode_mod.encode_superframes(c, self.layout, T)
-                          for c in chunks.split(sf_batch)])
+        with tracing.span("t3.encode"):
+            chunks = chunks.to(self.device, torch.int8)
+            parts = []
+            for c in chunks.split(sf_batch):
+                with tracing.span("t3.encode.batch"):
+                    parts.append(
+                        encode_mod.encode_superframes(c, self.layout, T))
+            with tracing.span("t3.encode.join"):
+                return torch.cat(parts)
 
     def decode_planes(self, words_T: torch.Tensor, rs_mode: str = "check",
                       sf_batch: int = 64):
@@ -114,23 +121,27 @@ class SuperframeCodec(nn.Module):
         strides are taken: the planes are made contiguous once here."""
         if repair_cap is not None and repair_cap <= 0:
             raise ValueError(f"repair_cap must be positive, got {repair_cap}")
-        if strategy == "fused":
-            raw, ok = self.decode_frames(words_T[None], repair_cap, sf_batch)
-            return raw[0], ok
-        words_T = words_T.to(self.device, torch.int8).contiguous()
-        if words_T.shape[0] == 0:
-            raise ValueError("decode needs at least one superframe")
-        if strategy in pipeline.BODY_DECODERS:
-            raw, ok_sf = self.decode_planes(words_T, strategy, sf_batch)
-            return raw, ok_sf.all()
-        if strategy == "auto":
-            raw, ok_sf = self.check(words_T, sf_batch)
-            bad = torch.nonzero(~ok_sf).flatten()
-            if bad.numel() == 0:
+        with tracing.span("t3.decode"):
+            if strategy == "fused":
+                raw, ok = self.decode_frames(words_T[None], repair_cap,
+                                             sf_batch)
+                return raw[0], ok
+            words_T = words_T.to(self.device, torch.int8).contiguous()
+            if words_T.shape[0] == 0:
+                raise ValueError("decode needs at least one superframe")
+            if strategy in pipeline.BODY_DECODERS:
+                raw, ok_sf = self.decode_planes(words_T, strategy, sf_batch)
                 return raw, ok_sf.all()
-            fix, ok_fix = self.paged(words_T[bad], sf_batch)
-            raw[bad] = fix
-            return raw, ok_fix.all()
+            if strategy == "auto":
+                raw, ok_sf = self.check(words_T, sf_batch)
+                # the host waits here for the check's flags
+                with tracing.span("t3.sync.auto"):
+                    bad = torch.nonzero(~ok_sf).flatten()
+                if bad.numel() == 0:
+                    return raw, ok_sf.all()
+                fix, ok_fix = self.paged(words_T[bad], sf_batch)
+                raw[bad] = fix
+                return raw, ok_fix.all()
         raise ValueError(f"unknown decode strategy {strategy!r}")
 
     def decode_frames(self, words_T: torch.Tensor,
@@ -148,23 +159,25 @@ class SuperframeCodec(nn.Module):
         round trip."""
         if repair_cap is not None and repair_cap <= 0:
             raise ValueError(f"repair_cap must be positive, got {repair_cap}")
-        words_T = words_T.to(self.device, torch.int8).contiguous()
-        if words_T.dim() != 4 or words_T.shape[2] != 9:
-            raise ValueError("decode_frames needs wire planes (F, n_sf, 9, "
-                             f"total), got {tuple(words_T.shape)}")
-        F, n_sf = words_T.shape[:2]
-        if F * n_sf == 0:
-            raise ValueError("decode needs at least one superframe")
-        cap = sf_batch if repair_cap is None else repair_cap
-        raw, ok_sf = self.check(words_T.flatten(0, 1), sf_batch)
-        raw = raw.view(F, n_sf, *raw.shape[1:])
-        nbad = (~ok_sf).sum()
-        order = torch.argsort(ok_sf.to(torch.uint8), stable=True)
-        idx = order[:cap]
-        fi, fj = idx // n_sf, idx % n_sf
-        fix, ok_fix = self.paged(words_T[fi, fj], cap)
-        raw[fi, fj] = fix
-        return raw, ok_fix.all() & (nbad <= idx.numel())
+        with tracing.span("t3.decode_frames"):
+            words_T = words_T.to(self.device, torch.int8).contiguous()
+            if words_T.dim() != 4 or words_T.shape[2] != 9:
+                raise ValueError("decode_frames needs wire planes (F, n_sf, "
+                                 f"9, total), got {tuple(words_T.shape)}")
+            F, n_sf = words_T.shape[:2]
+            if F * n_sf == 0:
+                raise ValueError("decode needs at least one superframe")
+            cap = sf_batch if repair_cap is None else repair_cap
+            raw, ok_sf = self.check(words_T.flatten(0, 1), sf_batch)
+            raw = raw.view(F, n_sf, *raw.shape[1:])
+            with tracing.span("t3.repair"):
+                nbad = (~ok_sf).sum()
+                order = torch.argsort(ok_sf.to(torch.uint8), stable=True)
+                idx = order[:cap]
+                fi, fj = idx // n_sf, idx % n_sf
+                fix, ok_fix = self.paged(words_T[fi, fj], cap)
+                raw[fi, fj] = fix
+            return raw, ok_fix.all() & (nbad <= idx.numel())
 
     def roundtrip(self, chunks, rs_mode: str = "check", fold=None,
                   sf_batch: int = 64, raw_wire: str = "words", feed=None):

@@ -67,6 +67,7 @@ import torch
 
 from ..config import (BeaconPayload, EncoderConfig, NUM_BANDS, ProfileID,
                       SuperframeHeader, encode_beacon_symbol)
+from ..runtime import tracing
 from . import dec_cuda, header as header_mod, interleave, rs, scramble
 from .gf27 import dig_to_sym, mod3, np_sym_to_dig, sym_to_dig
 
@@ -624,6 +625,7 @@ def beacon_paged(blocks: torch.Tensor, k: int, T: dict):
     g_rd = g_rd.permute(4, 3, 0, 1, 2).reshape(3, rs.N, n * C * PAGE)
     d_c, ok_c = rs.correct_pm(g_rd.contiguous(), k, _rs_maps(T, k))
     slot, use_corr = rs.slot_merge(pdirty, C)               # (n, npage)
+    rs.count_dirty_sent(dirty.view(n, npage, PAGE), use_corr)
     dpages = d_c.reshape(3, k, n, C, PAGE).permute(2, 3, 4, 1, 0) \
         .reshape(n, C, PAGE * k * 3)
     corr = torch.gather(dpages, 1, slot[..., None].expand(
@@ -664,12 +666,14 @@ def check_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
     """Check decode: (n, 9, H) -> (RAW planes (n, 9, n_out), ok (n,)).
     On the K1 route a CUDA tensor runs the kernel and a CPU tensor its
     plain twin; on the grid route both run ``grid_check``."""
-    if check_route(dlayout) == "grid":
-        return grid_check(body, dlayout, T)
-    if body.device.type == "cuda":
-        return dec_cuda.check_decode(body, dlayout)
-    if body.device.type == "cpu":
-        return dec_cuda.check_decode_ref(body, T)
+    grid = check_route(dlayout) == "grid"
+    with tracing.span("t3.check.grid" if grid else "t3.check.k1"):
+        if grid:
+            return grid_check(body, dlayout, T)
+        if body.device.type == "cuda":
+            return dec_cuda.check_decode(body, dlayout)
+        if body.device.type == "cpu":
+            return dec_cuda.check_decode_ref(body, T)
     raise ValueError(f"check decode: unsupported device {body.device}")
 
 
@@ -678,51 +682,53 @@ def paged_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
     (n, 9, H) -> (RAW planes (n, 9, n_out), ok (n,)).  The uniform bands
     of each k-group share C = min(g*npage, max(6, g)) dirty pages a
     superframe; the beacon band has its own chain (``beacon_paged``)."""
-    geom = dlayout.geom
-    n = body.shape[0]
-    nblk_p, nblk_g = _grid_blocks(geom.H)
-    npage = nblk_p // PAGE
-    grid = decode_grid(body, T)                          # (n, 9, Hg, 3)
-    gv = grid.view(n, NUM_BANDS, nblk_g, rs.N, 3)
-    S_all = block_syndromes(gv[:, :, :nblk_p], T)        # (n, 9, nblk_p, 3, 8)
-    ok = torch.ones(n, dtype=torch.bool, device=body.device)
-    for grp in k_groups(geom, dlayout.hdr.beacon):
-        k = grp.k
-        if grp.beacon:
-            data, ok_b = beacon_paged(_beacon_blocks(grid, grp, T), k, T)
-            _beacon_put(grid, grp, T, data)
-            ok = ok & ok_b.all(-1)
-            continue
-        r, g = rs.N - k, len(grp.bands)
-        bidx = torch.as_tensor(grp.bands, device=body.device)
-        C = min(g * npage, max(6, g))
-        dirty = (S_all[:, bidx, :, :, :r] != 0).flatten(3).any(-1)  # (n,g,nb)
-        pdirty = dirty.reshape(n, g * npage, PAGE).any(-1)
-        psafe = rs.first_dirty_pages(pdirty, C)                     # (n, C)
-        pages = gv[:, bidx, :nblk_p].reshape(n, g * npage,
-                                             PAGE * rs.N * 3)
-        g_rd = torch.gather(pages, 1, psafe[..., None].expand(
-            -1, -1, pages.shape[-1])).reshape(n, C, PAGE, rs.N, 3)
-        g_rd = g_rd.permute(4, 3, 0, 1, 2).reshape(3, rs.N, n * C * PAGE)
-        d_c, ok_c = rs.correct_pm(g_rd.contiguous(), k,
-                                  _rs_maps(T, k))            # (3, k, nCP)
-        delta = mod3(d_c.to(torch.int16) - g_rd[:, :k]).to(torch.int8)
-        slot, use_corr = rs.slot_merge(pdirty, C)            # (n, g*npage)
-        dpages = delta.reshape(3, k, n, C, PAGE).permute(2, 3, 4, 1, 0) \
-            .reshape(n, C, PAGE * k * 3)
-        dsel = torch.gather(dpages, 1, slot[..., None].expand(
-            -1, -1, dpages.shape[-1]))
-        dsel = torch.where(use_corr[..., None], dsel, 0) \
-            .reshape(n, g, nblk_p, k, 3)
-        gv[:, bidx, :nblk_p, :k] = mod3(gv[:, bidx, :nblk_p, :k]
-                                        .to(torch.int16) + dsel) \
-            .to(torch.int8)
-        ok_pages = torch.gather(ok_c.reshape(n, C, PAGE), 1,
-                                slot[..., None].expand(-1, -1, PAGE))
-        okb = torch.where(use_corr[..., None], ok_pages,
-                          ~dirty.reshape(n, g * npage, PAGE))
-        ok = ok & okb.flatten(1).all(-1)
-    return assemble_words(grid, T), ok
+    with tracing.span("t3.repair.paged"):
+        geom = dlayout.geom
+        n = body.shape[0]
+        nblk_p, nblk_g = _grid_blocks(geom.H)
+        npage = nblk_p // PAGE
+        grid = decode_grid(body, T)                      # (n, 9, Hg, 3)
+        gv = grid.view(n, NUM_BANDS, nblk_g, rs.N, 3)
+        S_all = block_syndromes(gv[:, :, :nblk_p], T)    # (n, 9, nblk_p, 3, 8)
+        ok = torch.ones(n, dtype=torch.bool, device=body.device)
+        for grp in k_groups(geom, dlayout.hdr.beacon):
+            k = grp.k
+            if grp.beacon:
+                data, ok_b = beacon_paged(_beacon_blocks(grid, grp, T), k, T)
+                _beacon_put(grid, grp, T, data)
+                ok = ok & ok_b.all(-1)
+                continue
+            r, g = rs.N - k, len(grp.bands)
+            bidx = torch.as_tensor(grp.bands, device=body.device)
+            C = min(g * npage, max(6, g))
+            dirty = (S_all[:, bidx, :, :, :r] != 0).flatten(3).any(-1) \
+                .reshape(n, g * npage, PAGE)
+            pdirty = dirty.any(-1)
+            psafe = rs.first_dirty_pages(pdirty, C)              # (n, C)
+            pages = gv[:, bidx, :nblk_p].reshape(n, g * npage,
+                                                 PAGE * rs.N * 3)
+            g_rd = torch.gather(pages, 1, psafe[..., None].expand(
+                -1, -1, pages.shape[-1])).reshape(n, C, PAGE, rs.N, 3)
+            g_rd = g_rd.permute(4, 3, 0, 1, 2).reshape(3, rs.N, n * C * PAGE)
+            d_c, ok_c = rs.correct_pm(g_rd.contiguous(), k,
+                                      _rs_maps(T, k))          # (3, k, nCP)
+            delta = mod3(d_c.to(torch.int16) - g_rd[:, :k]).to(torch.int8)
+            slot, use_corr = rs.slot_merge(pdirty, C)          # (n, g*npage)
+            rs.count_dirty_sent(dirty, use_corr)
+            dpages = delta.reshape(3, k, n, C, PAGE).permute(2, 3, 4, 1, 0) \
+                .reshape(n, C, PAGE * k * 3)
+            dsel = torch.gather(dpages, 1, slot[..., None].expand(
+                -1, -1, dpages.shape[-1]))
+            dsel = torch.where(use_corr[..., None], dsel, 0) \
+                .reshape(n, g, nblk_p, k, 3)
+            gv[:, bidx, :nblk_p, :k] = mod3(gv[:, bidx, :nblk_p, :k]
+                                            .to(torch.int16) + dsel) \
+                .to(torch.int8)
+            ok_pages = torch.gather(ok_c.reshape(n, C, PAGE), 1,
+                                    slot[..., None].expand(-1, -1, PAGE))
+            okb = torch.where(use_corr[..., None], ok_pages, ~dirty)
+            ok = ok & okb.flatten(1).all(-1)
+        return assemble_words(grid, T), ok
 
 
 def full_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
@@ -799,19 +805,20 @@ def header_validator(T: dict, rs_mode: str, hdr_all_pages: bool = False):
         return validate
 
     def validate(hdrs):
-        n = hdrs.shape[0]
-        sy = hdrs.transpose(1, 2).reshape(n, HEADER_WORDS * NUM_BANDS)
-        blocks = torch.cat([sy[:, :26], sy[:, 26:52]], dim=0)   # (2n, 26)
-        dig = sym_to_dig(blocks, dim=0)                         # (3, 2n, 26)
-        npage_h = -(-dig.shape[1] // 64)
-        hdr_dig, ok_h = rs.decode_paged_pm_bk(
-            dig, 18, page=64,
-            max_dirty_pages=npage_h if hdr_all_pages else None,
-            maps=_rs_maps(T, 18))
-        exp = T["hdr_exp"][:, :, None, :].expand(3, 2, n, 18) \
-            .reshape(3, 2 * n, 18)
-        match = (hdr_dig == exp).permute(1, 0, 2).flatten(1).all(-1)
-        return (ok_h & match).reshape(2, n).all(0)
+        with tracing.span("t3.repair.header"):
+            n = hdrs.shape[0]
+            sy = hdrs.transpose(1, 2).reshape(n, HEADER_WORDS * NUM_BANDS)
+            blocks = torch.cat([sy[:, :26], sy[:, 26:52]], dim=0)  # (2n, 26)
+            dig = sym_to_dig(blocks, dim=0)                     # (3, 2n, 26)
+            npage_h = -(-dig.shape[1] // 64)
+            hdr_dig, ok_h = rs.decode_paged_pm_bk(
+                dig, 18, page=64,
+                max_dirty_pages=npage_h if hdr_all_pages else None,
+                maps=_rs_maps(T, 18))
+            exp = T["hdr_exp"][:, :, None, :].expand(3, 2, n, 18) \
+                .reshape(3, 2 * n, 18)
+            match = (hdr_dig == exp).permute(1, 0, 2).flatten(1).all(-1)
+            return (ok_h & match).reshape(2, n).all(0)
     return validate
 
 

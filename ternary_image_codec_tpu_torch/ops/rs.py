@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from ..runtime import tracing
 from . import gf27
 from .gf27 import (m3, mod3, mod3_dot_pm, np_alpha_pow, np_gf_mul,
                    np_gf_neg, np_gf_solve, np_poly_mod)
@@ -249,11 +250,14 @@ def correct_pm(recv_pm: torch.Tensor, k: int, maps=None):
     A CUDA tensor goes to the K2 kernel, a CPU tensor to ``correct_pm_ref``
     (whose docstring gives the contract both keep); any other device
     raises."""
-    if recv_pm.device.type == "cuda":
-        from . import rs_cuda
-        return rs_cuda.rs_correct(recv_pm, k)
-    if recv_pm.device.type == "cpu":
-        return correct_pm_ref(recv_pm, k, maps)
+    tracing.count("t3.k2.codewords", recv_pm.shape[-1])
+    with tracing.span("t3.k2"):
+        if recv_pm.device.type == "cuda":
+            from . import rs_cuda
+            tracing.count("t3.k2.launches", 1)
+            return rs_cuda.rs_correct(recv_pm, k)
+        if recv_pm.device.type == "cpu":
+            return correct_pm_ref(recv_pm, k, maps)
     raise ValueError(f"correct_pm: unsupported device {recv_pm.device}")
 
 
@@ -302,6 +306,16 @@ def slot_merge(pdirty: torch.Tensor, C: int):
     return rank.clamp(0, C - 1).to(torch.int64), pdirty & (rank < C)
 
 
+def count_dirty_sent(dirty: torch.Tensor, use_corr: torch.Tensor) -> None:
+    """Count (``t3.k2.dirty``) the codewords with a nonzero syndrome among
+    those a paged chain sent to K2: ``dirty`` block flags (..., P, page),
+    ``use_corr`` (..., P) from ``slot_merge``, which marks the pages that
+    ``first_dirty_pages`` selected, its padding slots past the dirty
+    count left out."""
+    if tracing.active():
+        tracing.count("t3.k2.dirty", (dirty & use_corr[..., None]).sum())
+
+
 def pick_page(nblk: int, lo: int = 8, hi: int = 64, target: int = 24):
     """The divisor of nblk in [lo, hi] nearest ``target`` (the smaller of
     two as near); None when nblk has none."""
@@ -329,6 +343,7 @@ def decode_paged_pm_bk(recv_bk: torch.Tensor, k: int, page: int = 256,
         .reshape(3, C * page, N).transpose(1, 2).contiguous()  # (3, 26, Cp)
     d_g, ok_g = correct_pm(g_rd, k, maps)                    # (3, k, Cp)
     slot, use_corr = slot_merge(pdirty, C)
+    count_dirty_sent(dirty_blk.reshape(npage, page), use_corr)
     corr_pages = d_g.reshape(3, k, C, page).permute(0, 2, 3, 1)[:, slot]
     orig = rd[:, :, :k].reshape(3, npage, page, k)
     data = torch.where(use_corr[None, :, None, None], corr_pages, orig)

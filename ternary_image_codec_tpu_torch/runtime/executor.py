@@ -45,7 +45,6 @@ from typing import Any, Callable, Iterable, Iterator
 import torch
 
 from ..codec import resolve_device
-from . import tracing
 
 _SENTINEL = object()
 
@@ -192,10 +191,9 @@ class StreamExecutor:
                     continue                 # drain
                 i, x, ready = got
                 t0 = time.perf_counter()
-                with tracing.stage_timer("executor_dispatch"):
-                    self._hand_over(x, ready, cur)
-                    y = self._device(x)      # dispatch only: do NOT sync
-                    done = self._mark(cur)
+                self._hand_over(x, ready, cur)
+                y = self._device(x)          # dispatch only: do NOT sync
+                done = self._mark(cur)
                 self.stats.dispatch_s += time.perf_counter() - t0
                 outq.put((i, y, done))
         finally:

@@ -1,21 +1,27 @@
 """Tracing / profiling / structured logging of the PyTorch port.
 
-The port of the JAX package's ``runtime/tracing.py``, same API:
+  * span(name)              -- one layer boundary of the codec's work;
+  * count(name, n)          -- a count at such a boundary;
+  * report(reset=False)     -- what the spans and counters recorded;
+  * log_event(event, **)    -- one structured JSON line to stderr, enabled
+                               by T3_LOG=1;
+  * device_trace(outdir)    -- a ``torch.profiler`` trace (CPU, and CUDA
+                               where there is a card) written to
+                               ``outdir/trace.json`` in Chrome's trace
+                               format.
 
-  * stage_timer(name, sync=None) -- host-side wall-clock accumulation per
-                            pipeline stage; with ``sync``, a CUDA tensor,
-                            the clock stops after the work queued so far on
-                            the current stream of its device (one stream,
-                            never the whole device);
-  * stage_report()       -- {stage: {"calls": n, "total_s": t}} snapshot;
-  * log_event(event, **) -- one structured JSON line to stderr, enabled by
-                            T3_LOG=1;
-  * device_trace(outdir) -- a ``torch.profiler`` trace (CPU, and CUDA where
-                            there is a card) written to
-                            ``outdir/trace.json`` in Chrome's trace format.
-
-Everything is no-overhead-when-off: timers are a perf_counter pair, and
-log_event returns immediately unless T3_LOG is set.
+Spans and counters are on exactly while a ``torch.profiler`` session is
+recording, and there is no other switch.  Off, ``span`` returns one shared
+no-op context manager and ``count`` returns at once: no allocation, no
+clock read.  On, a span is a ``record_function`` of its name, so it lands
+on the profiler's timeline beside the kernels it launches: the kernels'
+device time under a span, and the spans of one call (nested in its
+top-level span's interval on its thread), are read from that trace.  The
+module itself adds up, by span path (``parent/child``), each span's calls
+and host milliseconds (``perf_counter``).  Each thread has its own stack
+of open spans.  A counter takes an int, or a 0-d tensor that is added
+where it lives and read in ``report``, so that counting adds no host
+sync.
 """
 from __future__ import annotations
 
@@ -25,37 +31,83 @@ import os
 import sys
 import threading
 import time
-from typing import Dict
 
 import torch
+from torch.autograd import profiler as _profiler
 
+
+def active() -> bool:
+    """Whether spans and counters record now: a ``torch.profiler`` session
+    is recording (a flag of the whole process; the profiler's own check,
+    ``torch._C._autograd._profiler_enabled``, reads False on the threads
+    that did not start it)."""
+    return _profiler._is_profiler_enabled
+
+
+_OFF = contextlib.nullcontext()
 _lock = threading.Lock()
-_stages: Dict[str, Dict[str, float]] = {}
+_local = threading.local()
+_spans: dict = {}       # path -> {"calls", "host_ms"}
+_counts: dict = {}      # name -> int or 0-d tensor
 
 
-@contextlib.contextmanager
-def stage_timer(name: str, sync=None):
-    """Time a pipeline stage.  `sync`: optional tensor to wait for before
-    stopping the clock (pass the stage's output); a CUDA tensor waits for
-    its device's current stream, anything else is ready already."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        if isinstance(sync, torch.Tensor) and sync.is_cuda:
-            torch.cuda.current_stream(sync.device).synchronize()
-        dt = time.perf_counter() - t0
+class _Span:
+    __slots__ = ("name", "path", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        self.path = stack[-1] + "/" + self.name if stack else self.name
+        stack.append(self.path)
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        host_ms = (time.perf_counter() - self.t0) * 1e3
+        self.rf.__exit__(*exc)
+        _local.stack.pop()
         with _lock:
-            s = _stages.setdefault(name, {"calls": 0, "total_s": 0.0})
+            s = _spans.setdefault(self.path, {"calls": 0, "host_ms": 0.0})
             s["calls"] += 1
-            s["total_s"] += dt
+            s["host_ms"] += host_ms
+        return False
 
 
-def stage_report(reset: bool = False) -> Dict[str, Dict[str, float]]:
+def span(name: str):
+    """A context manager around one layer boundary named ``name``
+    (``t3.<layer>``)."""
+    return _Span(name) if active() else _OFF
+
+
+def count(name: str, n) -> None:
+    """Add ``n`` (an int, or a 0-d tensor kept where it lives) to the
+    counter ``name``."""
+    if not active():
+        return
     with _lock:
-        out = {k: dict(v) for k, v in _stages.items()}
+        prev = _counts.get(name, 0)
+        if isinstance(n, torch.Tensor):
+            _counts[name] = n.detach().to(torch.int64) + prev
+        else:
+            _counts[name] = prev + int(n)
+
+
+def report(reset: bool = False) -> dict:
+    """What was recorded: {"spans": {path: {"calls", "host_ms"}},
+    "counts": {name: int}}; reads each tensor counter."""
+    with _lock:
+        out = {"spans": {p: dict(s) for p, s in _spans.items()},
+               "counts": dict(_counts)}
         if reset:
-            _stages.clear()
+            _spans.clear()
+            _counts.clear()
+    out["counts"] = {k: int(v) for k, v in out["counts"].items()}
     return out
 
 

@@ -34,6 +34,9 @@ COUNTERPARTS = {
     "ops.rs:encode_jit": "ops.rs:encode",
     "ops.rs:decode_jit": "ops.rs:decode",
     "ops.rs:decode_pm": "ops.rs:correct_pm",
+    # the port's tracing: spans and counters read by the benchmark
+    "runtime.tracing:stage_timer": "runtime.tracing:span",
+    "runtime.tracing:stage_report": "runtime.tracing:report",
     "ops.gf27:inv_pm": "ops.rs:inv_pm",
     f"{GRAFT}:entry": "entry:entry",
     f"{GRAFT}:_make_raw_words": "entry:make_raw_words",

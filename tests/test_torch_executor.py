@@ -1,7 +1,7 @@
 """The port's StreamExecutor and tracing against the JAX package's
 semantics (tests/test_executor.py, tests/test_tracing.py): frame order,
 resume start, overlap of load and write, backpressure, the first error
-re-raised after cancel; stage timers, JSON-line logging and the profiler
+re-raised after cancel; spans, JSON-line logging and the profiler
 trace.  On the CPU there are no streams; the card's stream hand-over is
 held by the ``cuda`` test and by ``chip_smoke.py``'s serve phase."""
 import json
@@ -163,29 +163,53 @@ def cuda_device():
 
 class TestTracing:
     def test_stage_timer_accumulates(self):
-        tracing.stage_report(reset=True)
-        for _ in range(3):
-            with tracing.stage_timer("encode"):
-                pass
-        with tracing.stage_timer("decode", sync=torch.arange(4)):
+        """``span`` (which replaced ``stage_timer``) adds up calls and host
+        ms by path while a profiler records, and nothing otherwise."""
+        tracing.report(reset=True)
+        with tracing.span("t3.off"):
             pass
-        rep = tracing.stage_report(reset=True)
-        assert rep["encode"]["calls"] == 3 and rep["decode"]["calls"] == 1
-        assert rep["decode"]["total_s"] >= 0.0
-        assert tracing.stage_report() == {}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            for _ in range(3):
+                with tracing.span("t3.encode"):
+                    pass
+            with tracing.span("t3.decode"):
+                with tracing.span("t3.check"):
+                    pass
+        rep = tracing.report(reset=True)["spans"]
+        assert set(rep) == {"t3.encode", "t3.decode", "t3.decode/t3.check"}
+        assert rep["t3.encode"]["calls"] == 3
+        assert rep["t3.decode"]["calls"] == 1
+        assert rep["t3.decode"]["host_ms"] >= rep["t3.decode/t3.check"][
+            "host_ms"] >= 0.0
+        assert set(rep["t3.decode"]) == {"calls", "host_ms"}
+        assert tracing.report() == {"spans": {}, "counts": {}}
 
     def test_exception_still_recorded(self):
-        tracing.stage_report(reset=True)
-        with pytest.raises(ValueError):
-            with tracing.stage_timer("boom"):
-                raise ValueError
-        assert tracing.stage_report(reset=True)["boom"]["calls"] == 1
+        tracing.report(reset=True)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            with pytest.raises(ValueError):
+                with tracing.span("t3.boom"):
+                    raise ValueError
+        assert tracing.report(reset=True)["spans"]["t3.boom"]["calls"] == 1
 
     def test_executor_dispatch_is_timed(self):
-        tracing.stage_report(reset=True)
-        cpu_executor(lambda i: i, lambda x: x, lambda i, y: None).run(range(4))
-        assert tracing.stage_report(reset=True)["executor_dispatch"]["calls"] \
-            == 4
+        """The dispatch is timed by ``ExecutorStats.dispatch_s`` alone; a
+        span inside ``device_fn`` records on the caller's thread."""
+        tracing.report(reset=True)
+
+        def device_fn(x):
+            with tracing.span("t3.device_fn"):
+                return x
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            stats = cpu_executor(lambda i: i, device_fn,
+                                 lambda i, y: None).run(range(4))
+        assert stats.frames == 4 and stats.dispatch_s > 0.0
+        rep = tracing.report(reset=True)["spans"]
+        assert set(rep) == {"t3.device_fn"}
+        assert rep["t3.device_fn"]["calls"] == 4
 
     def test_log_event_off_by_default(self, capsys, monkeypatch):
         monkeypatch.delenv("T3_LOG", raising=False)
