@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 Phases, one output line each:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: both CUDA kernels from ``ternary_image_codec_tpu_torch/csrc``
+2. build: the three CUDA kernels from ``ternary_image_codec_tpu_torch/csrc``
    and the native host library (``runtime/src/t3native.cpp``);
 3. K2 (RS correction chain) against its plain torch twin on the card, bit
    for bit on every block, for k in {18, 20, 22, 24}: 262,144 codewords
@@ -26,6 +26,13 @@ Phases, one output line each:
    large for the kernel's shared-memory stage; then its times at 2,025 and
    64 superframes (and at 16,384 words) against the memory bound, by CUDA
    events over calls one by one and as device time from a CUDA graph;
+4b. K3 (superframe encode) against its plain twin on the card, bit for
+   bit: one 8K frame of ``p2_8k_luma`` (2,025 superframes) as the main
+   path sends it, at n = 1, 3 and 64 and from a transposed (strided) input,
+   the flagship P5 + beacon frame, the UEP grouping (0,1,2,2,1,0,1,1,2)
+   and ``entry()``'s 720p superframe (460,800 words); one launch a call;
+   its times at 2,025 superframes by CUDA events and from a CUDA graph
+   beside the 0.1005 ms memory bound and the twin's time;
 5. the main path at full size through the port's public stream API: one
    8K frame (7680x4320, 2 px per word: 16,588,800 RAW words, 2,025
    superframes, P2 with luma-priority UEP) encoded and decoded with the
@@ -148,7 +155,7 @@ Phases, one output line each:
    paged repair, the grid check) exact clean and under a damage pattern
    fixed by its seed (at most t errors in codewords of three bands, the
    beacon band among them, one header cell, beacon cells), and an overcap
-   copy flagged; no kernel in the step, K2 and never K1 in each decode,
+   copy flagged; K3 once in the step, K2 and never K1 in each decode,
    every K2 input held bit-equal to the twin.
 
 Then a JSON line with each kernel's numbers (``device_ms`` is the
@@ -158,7 +165,9 @@ sizes, the full strategy's and the frames-batched decode's among them;
 run, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
 8's legs, ``launches_tools`` phase 9's tools, ``launches_mesh`` phase 10's
 legs, a count per rank, ``launches_bench`` phase 11's tools by leg,
-``launches_entry`` phase 12's step and decodes), the
+``launches_entry`` phase 12's step and decodes; K3's entry counts its
+launches in each phase, ``launches_by_phase``, and a rank's in phase 10's
+legs), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
 Tolerance everywhere: zero (the codec is integer arithmetic), except the
@@ -272,17 +281,17 @@ def phase_device(torch):
 
 
 def phase_build():
-    """Both kernels and the native host library at once: one nvcc process
+    """The kernels and the native host library at once: one nvcc process
     per kernel source, g++ for ``runtime/src/t3native.cpp``."""
     from concurrent.futures import ThreadPoolExecutor
     from ternary_image_codec_tpu_torch.runtime import build, native
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         host = pool.submit(native.available)
-        list(pool.map(build.load, ("check_decode", "rs_correct")))
+        list(pool.map(build.load, ("check_decode", "rs_correct", "encode")))
         require(host.result(), "g++ did not build runtime/src/t3native.cpp")
-    print(f"[2 build] check_decode.cu, rs_correct.cu with nvcc for sm_90a "
-          f"and t3native.cpp with g++, in parallel: "
+    print(f"[2 build] check_decode.cu, rs_correct.cu, encode.cu with nvcc for "
+          f"sm_90a and t3native.cpp with g++, in parallel: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -544,6 +553,87 @@ def phase_k1(torch, dev, codec, n_sf):
           f"{bound_big:.4f} ms", flush=True)
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "max_abs_err": worst}
+
+
+def k3_bound_ms(n_sf, layout):
+    """K3's memory bound: the RAW words read once, the wire planes written
+    once, over the HBM rate."""
+    moved = n_sf * 9 * (layout.n_raw_words + 6 + layout.geom.H)
+    return moved / HBM_BPS * 1e3, moved
+
+
+def phase_k3(torch, dev):
+    """K3 against its plain twin (``encode_superframes_ref`` on the card),
+    bit for bit: one 8K frame of the main path's layout at 2,025
+    superframes, at 1, 3 and 64, from a transposed input; the flagship
+    P5 + beacon frame; the UEP grouping (0,1,2,2,1,0,1,1,2); ``entry()``'s
+    one 720p superframe.  Random RAW symbols 0..26, one superframe of each
+    input over all 256 byte values.  One launch a call.  Then its times at
+    2,025 superframes: ``ms`` by CUDA events over calls one by one (the
+    wrapper's host work included), ``device_ms`` from a CUDA graph."""
+    from ternary_image_codec_tpu_torch import config
+    from ternary_image_codec_tpu_torch import entry as E
+    from ternary_image_codec_tpu_torch.codec import codec_for
+    from ternary_image_codec_tpu_torch.ops import enc_cuda, encode
+    g = torch.Generator(device=dev).manual_seed(7)
+    n8k = -(-(W8K * H8K // 2) // 8192)
+    checked = []
+
+    def chunks(n, n_raw):
+        x = torch.randint(0, 27, (n, n_raw, 9), generator=g, device=dev,
+                          dtype=torch.int8)
+        x[0].view(-1)[:256] = (torch.arange(256, device=dev) - 128) \
+            .to(torch.int8)
+        return x
+
+    def twin(x, codec):
+        T = codec.tables()
+        return torch.cat([encode.encode_superframes_ref(b, codec.layout, T)
+                          for b in x.split(SF_BATCH)])
+
+    def equal(x, codec, what):
+        before = enc_cuda.launches
+        got = encode.encode_superframes(x, codec.layout, codec.tables())
+        require(enc_cuda.launches == before + 1,
+                f"K3 {what}: {enc_cuda.launches - before} launches")
+        require(torch.equal(got, twin(x, codec)),
+                f"K3 {what}: wire planes differ from the twin")
+        checked.append(what)
+
+    luma = config.EncoderConfig(profile=config.ProfileID.P2_RS26_22,
+                                uep=config.uep_luma_priority())
+    codec = codec_for(luma, dev)
+    x = chunks(n8k, 8192)
+    equal(x, codec, f"p2_8k_luma n={n8k}")
+    for n in (1, 3, 64):
+        equal(x[:n].contiguous(), codec, f"p2_8k_luma n={n}")
+    planes = x[:64].transpose(1, 2).contiguous()
+    equal(planes.transpose(1, 2), codec, "p2_8k_luma n=64 transposed")
+    del planes
+    lay = codec.layout
+    ms = cuda_ms(torch, lambda: enc_cuda.encode(x, lay), 20)
+    dev_ms = graph_ms(torch, lambda: enc_cuda.encode(x, lay), 20)
+    plain = cuda_ms(torch, lambda: twin(x, codec), 2)
+    bound, moved = k3_bound_ms(n8k, lay)
+    for name, cfg in (("flagship P5 + beacon", flagship_cfg(config)),
+                      (f"uep {NONRESIDUE_UEP}", config.EncoderConfig(
+                          profile=config.ProfileID.P2_RS26_22,
+                          uep=config.UEPLayout(NONRESIDUE_UEP)))):
+        equal(chunks(n8k, 8192), codec_for(cfg, dev),
+              f"{name} n={n8k}")
+    del x
+    ecodec = codec_for(E.CFG, dev, E.N_RAW)
+    equal(chunks(1, E.N_RAW), ecodec, f"entry 720p n=1 ({E.N_RAW} words)")
+    plan = enc_cuda.plan(lay)
+    print(f"[4b K3 superframe_encode vs plain] bit-equal, one launch a call, "
+          f"on {len(checked)} inputs: {'; '.join(checked)}; plan {plan}; at "
+          f"{n8k} superframes, one by one (CUDA events): kernel {ms:.4f} ms = "
+          f"{moved / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the {bound:.4f} "
+          f"ms bound (bytes); device time (CUDA graph) {dev_ms:.4f} ms, "
+          f"{bound / dev_ms:.3f} of the bound; plain {plain:.2f} ms",
+          flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "bytes", "max_abs_err": 0}
 
 
 def bench_damage(n_sf, total_w, seed=1):
@@ -1142,16 +1232,18 @@ def phase_serve(torch, dev, cfg):
     return launches, times
 
 def counted_leg(legs, k1_in, k2_in, name, fn):
-    """fn() with the K1 and K2 launch counters set to 0 just before it and
-    read into ``legs[name]`` just after; every kernel input of it is kept
-    (``kept_inputs``)."""
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    """fn() with the K1 and K2 launch counters set to 0 just before it
+    and read into ``legs[name]`` just after, with K3's launches during it;
+    every K1 and K2 input of it is kept (``kept_inputs``)."""
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, enc_cuda, rs_cuda
     dec_cuda.launches = 0
     rs_cuda.launches = 0
+    k3 = enc_cuda.launches
     with kept_inputs(k1_in, k2_in):
         out = fn()
     legs[name] = {"check_decode": dec_cuda.launches,
-                  "rs_correct": rs_cuda.launches}
+                  "rs_correct": rs_cuda.launches,
+                  "superframe_encode": enc_cuda.launches - k3}
     return out
 
 
@@ -2021,7 +2113,7 @@ def mesh_leg(torch, mesh, name, sizes):
     """One leg on this rank: its run with the launch counts read from it
     alone and every K1/K2 input kept, its checks, the kept inputs held to
     the twins, then its warm times.  Returns host data."""
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, enc_cuda, rs_cuda
     dev = mesh.device
     cuda = dev.type == "cuda"
     run, check, timed = MESH_LEGS[name](torch, mesh, sizes)
@@ -2033,10 +2125,12 @@ def mesh_leg(torch, mesh, name, sizes):
     t0 = time.perf_counter()
     dec_cuda.launches = 0
     rs_cuda.launches = 0
+    k3 = enc_cuda.launches
     with kept_inputs(k1_in, k2_in):
         out = run()
     launches = {"check_decode": dec_cuda.launches,
-                "rs_correct": rs_cuda.launches}
+                "rs_correct": rs_cuda.launches,
+                "superframe_encode": enc_cuda.launches - k3}
     res = check(out)
     del out
     res["s"] = time.perf_counter() - t0
@@ -2375,8 +2469,8 @@ def phase_entry(torch, dev, smi_line):
     bit-equal to the CPU step's on the same input and the same on a second
     call; ``decode_profile_to_raw`` on the card of it clean, under
     ``entry_damage`` (exact, ok True) and of the overcap copy (ok False).
-    The launch counters are set to 0 before each leg and read after: no
-    kernel in the step, K2 and never K1 in each decode (a beacon layout's
+    The launch counters are set to 0 before each leg and read after: K3
+    once in the step, K2 and never K1 in each decode (a beacon layout's
     check is the plain grid check); every K2 input of the decodes is held
     bit-equal to the twin.  Returns (launches by leg, times)."""
     from ternary_image_codec_tpu_torch import entry as E
@@ -2422,8 +2516,9 @@ def phase_entry(torch, dev, smi_line):
         if want_ok:
             require(out.device == dev and torch.equal(out[:E.N_RAW], raw),
                     f"entry decode {name}: words differ")
-    require(legs["step"] == {"check_decode": 0, "rs_correct": 0},
-            f"entry step launched a kernel: {legs['step']}")
+    require(legs["step"] == {"check_decode": 0, "rs_correct": 0,
+                             "superframe_encode": 1},
+            f"entry step: launches {legs['step']}, K3 once expected")
     for name in ("clean", "damaged", "overcap"):
         require(legs[name]["check_decode"] == 0 and legs[name]["rs_correct"] > 0,
                 f"entry decode {name}: launches {legs[name]}")
@@ -2455,15 +2550,41 @@ def main():
                              uep=port.uep_luma_priority())
     codec = port.SuperframeCodec(cfg, device=dev)
     n_sf = -(-(W8K * H8K // 2) // cfg.superframe_words)
-    k1 = phase_k1(torch, dev, codec, n_sf)
-    launches, real = phase_main(torch, dev, cfg)
-    launches_px, at_sizes, _times = phase_pixel(torch, dev, cfg)
-    launches_sv, _serve_times = phase_serve(torch, dev, cfg)
-    launches_ly, k1_ly, _layout_times = phase_layouts(torch, dev)
-    launches_pt, _proto_times = phase_protos(torch, dev)
-    launches_mh, _mesh_times = phase_mesh(torch, dev, smi_line)
-    launches_bn = phase_bench(torch, dev, smi_line)
-    launches_en, _entry_times = phase_entry(torch, dev, smi_line)
+    from ternary_image_codec_tpu_torch.ops import enc_cuda
+    k3_by_phase = {}
+
+    def k3_counted(phase, fn, *args):
+        """fn(*args) with K3's launches in this process read into
+        ``k3_by_phase[phase]``."""
+        enc_cuda.launches = 0
+        out = fn(*args)
+        k3_by_phase[phase] = enc_cuda.launches
+        return out
+
+    k1 = k3_counted("4 K1", phase_k1, torch, dev, codec, n_sf)
+    k3 = k3_counted("4b K3", phase_k3, torch, dev)
+    launches, real = k3_counted("5 main", phase_main, torch, dev, cfg)
+    launches_px, at_sizes, _times = k3_counted("6 pixel", phase_pixel, torch,
+                                               dev, cfg)
+    launches_sv, _serve_times = k3_counted("7 serve", phase_serve, torch, dev,
+                                           cfg)
+    launches_ly, k1_ly, _layout_times = k3_counted("8 layouts", phase_layouts,
+                                                   torch, dev)
+    launches_pt, _proto_times = k3_counted("9 tools", phase_protos, torch,
+                                           dev)
+    launches_mh, _mesh_times = k3_counted("10 mesh", phase_mesh, torch, dev,
+                                          smi_line)
+    launches_bn = k3_counted("11 bench", phase_bench, torch, dev, smi_line)
+    launches_en, _entry_times = k3_counted("12 entry", phase_entry, torch,
+                                           dev, smi_line)
+    for phase in ("5 main", "6 pixel", "7 serve", "8 layouts", "11 bench",
+                  "12 entry"):
+        require(k3_by_phase[phase] > 0, f"phase {phase}: K3 never launched")
+    print(f"[K3 launches by phase] {json.dumps(k3_by_phase)}; phase 10's "
+          f"ranks: " + json.dumps({leg: [r.get("superframe_encode") for r in
+                                         ranks]
+                                   for leg, ranks in launches_mh.items()}),
+          flush=True)
     k1_at_sizes = dict(at_sizes["check_decode"])
     k1_at_sizes[f"uep {NONRESIDUE_UEP} n_sf={k1_ly.pop('n_sf')}"] = k1_ly
     k2.update(at_sizes["rs_correct"])
@@ -2517,6 +2638,15 @@ def main():
          "bound_by": "bytes", "library_ms": None,
          "at_path_sizes": {key: t for key, t in k2.items()
                            if f"B={K2_BLOCKS}" not in key}},
+        {"name": "superframe_encode", "route": "cuda",
+         "source": "ternary_image_codec_tpu_torch/csrc/encode.cu",
+         "replaces": None, "launches_by_phase": k3_by_phase,
+         "launches_mesh": {leg: [n.get("superframe_encode") for n in ranks]
+                           for leg, ranks in launches_mh.items()},
+         "max_abs_err": k3["max_abs_err"],
+         "ms": k3["ms"], "device_ms": k3["device_ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

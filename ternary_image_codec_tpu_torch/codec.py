@@ -71,10 +71,14 @@ class SuperframeCodec(nn.Module):
 
     def encode(self, chunks: torch.Tensor, sf_batch: int = 64) -> torch.Tensor:
         """RAW chunks (n_sf, n_raw_words, 9) -> wire planes
-        (n_sf, 9, 6 + H), ``sf_batch`` superframes at a time."""
+        (n_sf, 9, 6 + H).  On the card one K3 launch takes every
+        superframe; on the CPU the twin goes ``sf_batch`` superframes at a
+        time, which bounds its memory."""
         T = self.tables()
         with tracing.span("t3.encode"):
             chunks = chunks.to(self.device, torch.int8)
+            if chunks.device.type == "cuda":
+                return encode_mod.encode_superframes(chunks, self.layout, T)
             parts = []
             for c in chunks.split(sf_batch):
                 with tracing.span("t3.encode.batch"):

@@ -18,9 +18,14 @@ superframe of n RAW words:
   the beacon cells, which carry the beacon symbol as it is; cells pack to
   a symbol sum(3^d * digit), and the 6 constant header words go first.
 
-All of it is index gathers built once per layout (``pipeline.derive_tables``)
-and one mod-3 product per group.  The reference never wrote this step as
-a TPU kernel, so it stays plain torch here.
+``encode_superframes`` takes one of two routes, fixed by the tensor's
+device: on a CUDA tensor K3 (csrc/encode.cu via ``enc_cuda.encode``), one
+launch for every superframe of the call, or a raise; on the CPU the plain
+torch twin ``encode_superframes_ref``: index gathers built once per
+layout (``pipeline.derive_tables``) and one mod-3 product per group.  K3
+matches the twin bit for bit; the twin runs on any device, so the card
+can hold K3 to it.  ``encode_rows`` (one superframe's rows, for the
+mesh's row split) always runs the twin's steps.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import numpy as np
 import torch
 
 from ..config import NUM_BANDS
-from . import rs, scramble
+from . import enc_cuda, rs, scramble
 from .gf27 import mod3, np_sym_to_dig
 from .pipeline import (_beacon_payload_rows, _beacon_rows, _encode_gather,
                        k_groups, parity_map)
@@ -66,7 +71,18 @@ def scramble_pack(grid: torch.Tensor, off: torch.Tensor, beacon,
 
 def encode_superframes(chunks: torch.Tensor, layout, T: dict) -> torch.Tensor:
     """RAW words (n, n_raw_words, 9) int8 -> wire planes
-    (n, 9, 6 + H) int8, with ``T`` the codec's tables."""
+    (n, 9, 6 + H) int8, with ``T`` the codec's tables: K3 on a CUDA
+    tensor (any strides), the plain twin on the CPU."""
+    if chunks.device.type == "cuda":
+        return enc_cuda.encode(chunks, layout)
+    return encode_superframes_ref(chunks, layout, T)
+
+
+def encode_superframes_ref(chunks: torch.Tensor, layout, T: dict
+                           ) -> torch.Tensor:
+    """Plain torch twin of K3 on any device: RAW words (n, n_raw_words, 9)
+    -> wire planes (n, 9, 6 + H) int8, ``T`` the codec's tables on the
+    same device."""
     geom, beacon = layout.geom, layout.cfg.beacon
     n, H = chunks.shape[0], geom.H
     dev = chunks.device
