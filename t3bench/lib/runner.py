@@ -3,11 +3,19 @@ answers against the plain reference, and the result line.
 
 The window is a closed loop with one client: each request starts when the
 last has ended, and runs from the call into the port to the device sync
-that ends it.  The runner stops starting requests once ``seconds`` have
-passed and, with ``--trace 1``, the profiled stretch has closed.  A sample of requests drawn from the seed, and the last one, keep
-their answers; every request's ok flag is counted.  Once the window has
-closed and the peak memory is read, the loop's ``judge`` holds them to
-the reference.
+that ends it.  A cell of n > 1 chips runs as n ranks (``ranks.py``): this
+process is rank 0, on ``cuda:0``, and starts the others, which run each
+request in lockstep with it; the broadcast that lets them go counts in the
+request.  The answers judged are rank 0's, ``memory_peak_bytes`` is the
+fullest card's, and a ``--trace 1`` run profiles rank 0 alone.  The runner
+stops starting requests once ``seconds`` have passed and, with
+``--trace 1``, the profiled stretch has closed.  A sample of requests
+drawn from the seed, and the last one, keep their answers; every
+request's ok flag is counted.  Once the window has closed and the peak
+memory is read, every rank frees the program's state, counts what its
+loop's ``tally`` checks on that rank (where the loop has one; the counts
+are summed over the ranks), and the loop's ``judge`` holds rank 0's
+answers and those counts to the reference.
 """
 from __future__ import annotations
 
@@ -17,14 +25,14 @@ import json
 import os
 import sys
 import time
+import traceback
 
 import numpy as np
 
 from . import cell as cells
 from . import checks as chk
+from . import ranks
 from .trace import Spans, Tracer, sync
-
-FORBIDDEN = ("jax", "jaxlib", "flax", "ternary_image_codec_tpu")
 
 
 @dataclasses.dataclass
@@ -38,7 +46,7 @@ class Context:
     window_s: float
     frames: int
     latencies_s: list
-    peak_bytes: int | None
+    peak_bytes: int | None      # the fullest card's
     spans: dict                 # span -> [ms a frame, a call]
     summary: object | None      # trace.Summary of the profiled stretch
     kernel_bytes: dict          # kernel -> tensor bytes in that stretch
@@ -68,11 +76,37 @@ def sample(seed: int, params: dict) -> set:
 
 def run_cell(bench_dir: str, benchmark: dict, name: str, seed: int,
              seconds: float, trace: bool, dev, t0: float,
-             control: bool = False) -> dict:
+             control: bool = False, cores=None,
+             timeout_s: float = ranks.TIMEOUT_S) -> dict:
     """The result object of one run (``correct`` and ``checks`` included)
-    on ``dev``; ``t0`` is the process's start on ``time.perf_counter``."""
-    import torch
+    on ``dev``; ``t0`` is the process's start on ``time.perf_counter``.
+    A cell of more than one chip runs its other ranks on the cores that
+    ``ranks.plan_cores`` gives from ``cores``, the affinity mask the
+    process had before ``run.py`` pinned it (default: the mask it has);
+    raises ``ranks.Forbidden`` where one of them loaded a forbidden
+    module."""
     cell = cells.load_cell(bench_dir, name)
+    world = None
+    if cell["chips"] > 1:
+        world = ranks.World(
+            bench_dir, name, seed, control, cell["chips"], dev,
+            sorted(os.sched_getaffinity(0)) if cores is None else cores,
+            timeout_s)
+    try:
+        return _run(bench_dir, benchmark, name, cell, seed, seconds, trace,
+                    dev, t0, control, world)
+    except BaseException:
+        if world is not None and world.backend == "nccl" and not world.clean:
+            traceback.print_exc()       # the process ends in world.close()
+        raise
+    finally:
+        if world is not None:
+            world.close()
+
+
+def _run(bench_dir, benchmark, name, cell, seed, seconds, trace, dev, t0,
+         control, world):
+    import torch
     cfg = cells.load_config(bench_dir, cell["config"])
     e2e, per = cells.metric_plan(benchmark, name)
     plan = per if trace else e2e
@@ -103,6 +137,8 @@ def run_cell(bench_dir: str, benchmark: dict, name: str, seed: int,
                 tracer.start()
             t_start += time.perf_counter() - t
         ts = time.perf_counter()
+        if world:
+            world.go()
         with spans("request", loop.frames_per_request):
             ans = loop.request(i)
         sync(dev)
@@ -123,6 +159,8 @@ def run_cell(bench_dir: str, benchmark: dict, name: str, seed: int,
             break
     window_s = te - t_start
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    if world:
+        world.stop()
     if tracer:
         if tracer.running:
             tracer.stop()
@@ -131,7 +169,26 @@ def run_cell(bench_dir: str, benchmark: dict, name: str, seed: int,
     del ans, last
     span_ms = spans.ms_per_frame()
     loop.release()
-    judged = loop.judge(kept, not_ok, i)
+    tally = loop.tally() if hasattr(loop, "tally") else None
+    if world:
+        reports = world.reports({"peak": peak, "requests": i, "tally": tally,
+                                 "modules": ranks.loaded_forbidden()})
+        world.close()
+        if any(r["requests"] != i for r in reports.values()):
+            raise RuntimeError(f"ranks out of lockstep: rank 0 ran {i} "
+                               f"requests, the others {reports}")
+        found = {r: rep["modules"] for r, rep in reports.items()
+                 if rep["modules"]}
+        if found:
+            raise ranks.Forbidden(found)
+        peaks = {r: rep["peak"] for r, rep in reports.items()}
+        print(f"t3bench: peak bytes by rank {peaks}", file=sys.stderr)
+        peak = ranks.fullest(peaks.values())
+        if tally is not None:
+            tally = {k: sum(rep["tally"][k] for rep in reports.values())
+                     for k in tally}
+    judged = loop.judge(kept, not_ok, i) if tally is None \
+        else loop.judge(kept, not_ok, i, tally)
     del kept
     ctx = Context(
         workload=cell, config=cfg, setup_s=setup_s, window_s=window_s,
@@ -173,11 +230,9 @@ def power_limit(dev) -> str | None:
     return p.stdout.strip() or None
 
 
-def loaded_forbidden() -> list:
-    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
-
-
-def main(argv, t0: float, root: str) -> int:
+def main(argv, t0: float, root: str, cores=None) -> int:
+    """``run.py``'s run of one cell on the card; ``cores`` is the affinity
+    mask the process had before ``run.py`` pinned it.  The exit code."""
     args = parse(argv)
     bench_dir = os.path.join(root, "t3bench")
     try:
@@ -195,15 +250,27 @@ def main(argv, t0: float, root: str) -> int:
         return 2
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    out = run_cell(bench_dir, benchmark, args.workload, args.seed,
-                   args.seconds, bool(args.trace), dev, t0,
-                   control=args.control)
-    bad = loaded_forbidden()
+    return report(bench_dir, benchmark, args, dev, t0, cores)
+
+
+def report(bench_dir: str, benchmark: dict, args, dev, t0: float,
+           cores=None, timeout_s: float = ranks.TIMEOUT_S) -> int:
+    """Run the cell of ``args`` on ``dev`` and print its result line and
+    checks; the exit code (3 where a rank loaded a forbidden module)."""
+    try:
+        out = run_cell(bench_dir, benchmark, args.workload, args.seed,
+                       args.seconds, bool(args.trace), dev, t0,
+                       control=args.control, cores=cores, timeout_s=timeout_s)
+    except ranks.Forbidden as e:
+        print(f"t3bench: {e}", file=sys.stderr)
+        return 3
+    bad = ranks.loaded_forbidden()
     if bad:
         print(f"t3bench: modules loaded in this process: {bad}",
               file=sys.stderr)
         return 3
-    out["device"]["power"] = power_limit(dev)
+    if dev.type == "cuda":
+        out["device"]["power"] = power_limit(dev)
     checks = out.pop("checks")
     out["checks"] = checks                  # last key of the line
     for name, c in checks.items():

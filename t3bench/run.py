@@ -27,7 +27,9 @@ os.environ["CUDA_CACHE_PATH"] = os.path.join(CACHE, "cuda")
 # The program's host path is one Python thread that feeds the card: keep
 # the run on two fixed cores of those it may use, past the first (which
 # takes the host's interrupts), so that it neither moves between cores
-# nor shares one with them.
+# nor shares one with them.  The other ranks of a cell on several cards
+# take pairs of the cores after these (lib/ranks.py), from the mask the
+# process had before this pin.
 _cores = sorted(os.sched_getaffinity(0))
 os.sched_setaffinity(0, _cores[1:3] if len(_cores) > 2 else _cores)
 if sys.path[0] == HERE:
@@ -38,4 +40,4 @@ else:
 from t3bench.lib import runner  # noqa: E402
 
 if __name__ == "__main__":
-    sys.exit(runner.main(sys.argv[1:], T0, ROOT))
+    sys.exit(runner.main(sys.argv[1:], T0, ROOT, _cores))

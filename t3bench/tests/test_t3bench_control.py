@@ -93,6 +93,56 @@ def fault_unrepaired(monkeypatch):
     monkeypatch.setattr(pipeline, "decode_frames_fused", decode_frames_fused)
 
 
+# The split's faults are planted in rank 0, whose answer is judged; its
+# collectives still run, so that the other ranks keep in step.
+def fault_split_altered_answer(monkeypatch):
+    from ternary_image_codec_tpu_torch.parallel import mesh
+    split = mesh.roundtrip_superframes_dp
+
+    def roundtrip_superframes_dp(*a, **k):
+        local, ok = split(*a, **k)
+        return flip_first(local), ok
+    monkeypatch.setattr(mesh, "roundtrip_superframes_dp",
+                        roundtrip_superframes_dp)
+
+
+def fault_split_flag_flipped(monkeypatch):
+    from ternary_image_codec_tpu_torch.parallel import mesh
+    split = mesh.roundtrip_superframes_dp
+
+    def roundtrip_superframes_dp(*a, **k):
+        local, ok = split(*a, **k)
+        return local, ~ok
+    monkeypatch.setattr(mesh, "roundtrip_superframes_dp",
+                        roundtrip_superframes_dp)
+
+
+def fault_split_altered_wire(monkeypatch):
+    """One body symbol of each encoded micro-batch altered: the paged
+    decode repairs it, so the frame and the flags come back right and the
+    wire alone shows it."""
+    from ternary_image_codec_tpu_torch.ops import encode
+    from ternary_image_codec_tpu_torch.ops.pipeline import HEADER_WORDS
+    real = encode.encode_superframes
+
+    def encode_superframes(*a, **k):
+        w = real(*a, **k).clone()
+        w[0, 0, HEADER_WORDS] = (w[0, 0, HEADER_WORDS] + 1) % 27
+        return w
+    monkeypatch.setattr(encode, "encode_superframes", encode_superframes)
+
+
+def fault_exchange_left_out(monkeypatch):
+    from ternary_image_codec_tpu_torch.parallel import mesh
+    real = mesh.gather
+
+    def gather(m, x, *a, **k):
+        out = real(m, x, *a, **k).clone()
+        out[x.shape[0]:] = 0
+        return out
+    monkeypatch.setattr(mesh, "gather", gather)
+
+
 FAULTS = [("p2_8k_luma.rt_clean", fault_altered_wire),
           ("p2_8k_luma.rt_clean", fault_altered_answer),
           ("p2_8k_luma.rt_clean", fault_flag_flipped),
@@ -102,7 +152,11 @@ FAULTS = [("p2_8k_luma.rt_clean", fault_altered_wire),
           ("p2_8k_luma.rx_dirty5", fault_unrepaired),
           ("p5_8k_beacon.rx_dirty1", fault_altered_answer),
           ("p5_8k_beacon.rx_dirty1", fault_unrepaired),
-          ("p5_8k_beacon.rx_dirty1", fault_flag_flipped)]
+          ("p5_8k_beacon.rx_dirty1", fault_flag_flipped),
+          ("p2_8k_luma.sfdp4_rt", fault_split_altered_answer),
+          ("p2_8k_luma.sfdp4_rt", fault_split_flag_flipped),
+          ("p2_8k_luma.sfdp4_rt", fault_split_altered_wire),
+          ("p2_8k_luma.sfdp4_rt", fault_exchange_left_out)]
 
 
 @pytest.mark.parametrize("name,fault", FAULTS,
@@ -114,15 +168,23 @@ def test_broken_timed_path_is_not_correct(tmp_path, monkeypatch, name,
     fault(monkeypatch)
     out = run(bd, name)
     assert not out["correct"], out["checks"]
-    if fault is fault_flag_flipped:
+    if fault in (fault_flag_flipped, fault_split_flag_flipped):
         flags = [c["value"] for n, c in out["checks"].items()
                  if n.startswith("requests_")]
         assert flags == [out["attempted"]]
+    if fault is fault_split_altered_wire:
+        values = {n: c["value"] for n, c in out["checks"].items()}
+        assert values["wire_symbols_wrong"] > 0
+        assert values["raw_symbols_wrong"] == values["requests_not_ok"] == 0
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", tiny.CELLS)
 def test_control_on_card_at_cell_size(cuda_device, name):
+    from t3bench.lib import cell as cells
+    chips = cells.load_cell(tiny.BENCH, name)["chips"]
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA devices")
     for seed in (3_000_000_101, 3_000_000_102, 3_000_000_103):
         out = run(tiny.BENCH, name, dev=cuda_device, seed=seed,
                   control=True, seconds=2)

@@ -24,8 +24,10 @@ def test_cell_runs_correct_on_cpu(tmp_path, name):
     out = run(bd, tiny.benchmark(), name)
     assert out["correct"], out["checks"]
     assert out["attempted"] >= 1 and out["failed"] == 0
-    rt = ".rt" if name.endswith("rt_clean") else ""
-    assert {"fps" + rt, "latency_ms_p95" + rt, "setup_s"} <= set(out["metrics"])
+    own = {"p2_8k_luma.rt_clean": ".rt", "p2_8k_luma.sfdp4_rt": ".sfdp"}
+    sfx = own.get(name, "")
+    assert {"fps" + sfx, "latency_ms_p95" + sfx, "setup_s"} \
+        <= set(out["metrics"])
     assert list(out)[-1] == "checks"
 
 

@@ -8,7 +8,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 CELLS = ("p2_8k_luma.rt_clean", "p2_8k_luma.rx_dirty5",
-         "p5_8k_beacon.rx_dirty1")
+         "p5_8k_beacon.rx_dirty1", "p2_8k_luma.sfdp4_rt")
+CPU_RANKS = 2           # ranks of a cell of several chips, with gloo
 
 
 def benchmark() -> dict:
@@ -23,7 +24,8 @@ def shrink_config(cfg: dict) -> dict:
 
 
 def copy(tmp_path) -> str:
-    """A copy of the benchmark folder whose cells run on tiny frames."""
+    """A copy of the benchmark folder whose cells run on tiny frames, those
+    of several chips on ``CPU_RANKS`` ranks."""
     bd = os.path.join(str(tmp_path), "t3bench")
     shutil.copytree(BENCH, bd, ignore=shutil.ignore_patterns(
         "__pycache__", "tests"))
@@ -43,6 +45,7 @@ def copy(tmp_path) -> str:
             prm["repair_cap"] = 2 * prm["frames_per_request"]
         prm["check"]["among"] = 4
         prm["trace"] = {"skip": 1, "requests": 2}
+        cell["chips"] = min(cell["chips"], CPU_RANKS)
         with open(p, "w") as f:
             json.dump(cell, f)
     return bd
