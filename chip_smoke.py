@@ -59,8 +59,12 @@ Phases, one output line each:
    ``decode_header_from_words``'s 2 codewords for K2); after the run the
    frames-batched decode is held equal to two fused decodes; K2 timed on
    the damaged full decode's inputs (k=22, k=20 and the k=18 header
-   chain), K1 on the frames-batched decode's 4,050 superframes; ingest,
-   egress, e2e, full, none and frames-batched dirty decode ms per frame;
+   chain), K1 on the frames-batched decode's 4,050 superframes; the same
+   frame as (H, W, 3) through ``encode_rgb``/``decode_rgb(..., "auto")``,
+   its launches counted alone (one K3, one K1, no K2), its K1 input held
+   to the twin, its wire and pixels equal to the stream's and the CPU's;
+   ingest, egress, e2e, full, none and frames-batched dirty decode ms per
+   frame;
 7. the serve path at full size: the native CRC library must build; 4
    seeded 8K frames (pinned host memory) through ``StreamExecutor``
    (prefetch 2): H2D, ``enc_serve`` (encode and base-243 wire pack), D2H
@@ -162,7 +166,7 @@ Then a JSON line with each kernel's numbers (``device_ms`` is the
 CUDA-graph time; ``at_path_sizes`` holds the times at the path's own
 sizes, the full strategy's and the frames-batched decode's among them;
 ``launches`` counts phase 5's stream, ``launches_pixel_path`` phase 6's
-run, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
+run, ``launches_rgb_entry`` phase 6's ``encode_rgb``/``decode_rgb`` leg, ``launches_serve`` phase 7's first pass, ``launches_layouts`` phase
 8's legs, ``launches_tools`` phase 9's tools, ``launches_mesh`` phase 10's
 legs, a count per rank, ``launches_bench`` phase 11's tools by leg,
 ``launches_entry`` phase 12's step and decodes; K3's entry counts its
@@ -1016,8 +1020,48 @@ def phase_pixel(torch, dev, cfg):
         "bound_ms": k1_bound(dl, body.shape[0])[0]}
     del body
 
+    # the RGB entry: the same frame as one (H, W, 3) image through
+    # encode_rgb and decode_rgb on the card, its launches counted alone
+    # (one K3, one K1, no K2) and its K1 input held to the twin; then
+    # against the same calls on the CPU and the stream's words and pixels
+    img = frame.permute(2, 1, 0).reshape(H8K, W8K, 3)
+    codec = codec_for(cfg, dev)
+    legs, k1_rgb, k2_rgb = {}, [], []
+
+    def rgb_leg():
+        wire = codec.encode_rgb(img)
+        return (wire,) + codec.decode_rgb(wire, "auto", size=(H8K, W8K))
+    wire, back, ok = counted_leg(legs, k1_rgb, k2_rgb, "rgb_entry", rgb_leg)
+    launches["rgb_entry"] = legs["rgb_entry"]
+    require(legs["rgb_entry"] == {"superframe_encode": 1, "check_decode": 1,
+                                  "rs_correct": 0},
+            f"encode_rgb + decode_rgb(auto) of a clean 8K frame: launches "
+            f"{legs['rgb_entry']}, not one K3, one K1 and no K2")
+    for body, layout in k1_rgb:
+        require(layout is codec.dlayout, "decode_rgb's K1 ran on another "
+                "layout than the stream's")
+        _k1_equal(torch, body, codec, f"decode_rgb n_sf={body.shape[0]}")
+    del k1_rgb, k2_rgb
+    require(bool(ok), "decode_rgb of the 8K RGB frame: ok is False")
+    require(torch.equal(wire.transpose(1, 2), words),
+            "encode_rgb differs from the stream encode of ingest9's words")
+    require(torch.equal(back, want_rgb.permute(2, 1, 0).reshape(H8K, W8K, 3)),
+            "decode_rgb differs from egress9(ingest9(frame))")
+    t0 = time.perf_counter()
+    cpu = codec_for(cfg, "cpu")
+    require(torch.equal(cpu.encode_rgb(img.cpu()), wire.cpu()),
+            "encode_rgb on the card differs from the CPU")
+    back_cpu, ok_cpu = cpu.decode_rgb(wire.cpu(), "auto", size=(H8K, W8K))
+    require(bool(ok_cpu) and torch.equal(back_cpu, back.cpu()),
+            "decode_rgb on the card differs from the CPU")
+    cpu_s = time.perf_counter() - t0
+    del cpu, back_cpu
+
     # warm times, ms per frame
     times = {
+        "encode_rgb": wall_ms(torch, lambda: codec.encode_rgb(img))[0],
+        "decode_rgb": wall_ms(torch, lambda: codec.decode_rgb(
+            wire, size=(H8K, W8K)))[0],
         "ingest": wall_ms(torch, lambda: wc.ingest9_planes(frame))[0],
         "egress": wall_ms(torch, lambda: wc.egress9_planes(planes))[0],
         "e2e roundtrip": wall_ms(torch, e2e)[0],
@@ -1036,6 +1080,10 @@ def phase_pixel(torch, dev, cfg):
           f"frames-batched fused decode of 2 damaged frames all exact "
           f"(words and pixels; frames-batched equal to two fused decodes); "
           f"profile round trip at {n_prof} words, 8 body errors, exact; "
+          f"encode_rgb/decode_rgb of the frame as (H, W, 3) equal to the "
+          f"stream's words and pixels and to the CPU's ({cpu_s:.1f} s), "
+          f"launches {launches['rgb_entry']}, its K1 input bit-equal to "
+          f"plain; "
           f"launches {launches}; every kernel input of the run bit-equal to "
           f"plain (inputs by shape: {shapes}); times at the path's sizes: "
           f"{at_sizes}; ms/frame warm: "
@@ -2598,6 +2646,7 @@ def main():
          "replaces": "ternary_image_codec_tpu/ops/dec_pallas.py:116",
          "launches": launches["check_decode"],
          "launches_pixel_path": launches_px["check_decode"],
+         "launches_rgb_entry": launches_px["rgb_entry"]["check_decode"],
          "launches_serve": launches_sv["check_decode"],
          "launches_layouts": {leg: n["check_decode"]
                               for leg, n in launches_ly.items()},
@@ -2620,6 +2669,7 @@ def main():
          "replaces": "ternary_image_codec_tpu/ops/rs_pallas.py:199",
          "launches": launches["rs_correct"],
          "launches_pixel_path": launches_px["rs_correct"],
+         "launches_rgb_entry": launches_px["rgb_entry"]["rs_correct"],
          "launches_serve": launches_sv["rs_correct"],
          "launches_layouts": {leg: n["rs_correct"]
                               for leg, n in launches_ly.items()},
@@ -2641,6 +2691,7 @@ def main():
         {"name": "superframe_encode", "route": "cuda",
          "source": "ternary_image_codec_tpu_torch/csrc/encode.cu",
          "replaces": None, "launches_by_phase": k3_by_phase,
+         "launches_rgb_entry": launches_px["rgb_entry"]["superframe_encode"],
          "launches_mesh": {leg: [n.get("superframe_encode") for n in ranks]
                            for leg, ranks in launches_mh.items()},
          "max_abs_err": k3["max_abs_err"],

@@ -1,5 +1,9 @@
 """``SuperframeCodec``: one config's superframe codec as an ``nn.Module``.
 
+``encode_rgb`` and ``decode_rgb`` carry one 8-bit RGB frame through the
+word9 bridges (2 pixels a word, ``ops/wordcodec.py``) around ``encode``
+and ``decode``.
+
 The codec has no learned parameters; what it carries is the config's
 tables (RS maps per k, header words, scramble offsets, gather indices),
 registered as buffers on one explicit device.  ``tables_from_reference``
@@ -16,7 +20,7 @@ from torch import nn
 
 from .config import EncoderConfig
 from .ops import encode as encode_mod
-from .ops import pipeline
+from .ops import pipeline, wordcodec
 from .ops.pipeline import HEADER_WORDS
 from .runtime import tracing
 
@@ -147,6 +151,58 @@ class SuperframeCodec(nn.Module):
                 raw[bad] = fix
                 return raw, ok_fix.all()
         raise ValueError(f"unknown decode strategy {strategy!r}")
+
+    def _rgb_words(self, h: int, w: int):
+        """(pixels, word9 words, superframes) of an h x w frame."""
+        n_px = h * w
+        n_words = -(-n_px // 2)
+        if n_words == 0:
+            raise ValueError("an RGB frame needs at least one pixel")
+        return n_px, n_words, -(-n_words // self.layout.n_raw_words)
+
+    def encode_rgb(self, rgb: torch.Tensor) -> torch.Tensor:
+        """One 8-bit RGB frame (H, W, 3) uint8, interleaved -> wire planes
+        (n_sf, 9, 6 + H_body) of its word9 words.
+
+        ``wordcodec.ingest9`` writes the words of the whole frame, word j
+        holding pixels 2j and 2j + 1 in raster order (an odd last pixel
+        paired as ``quant_to_words9`` pairs it), straight into the
+        superframes that ``encode`` takes (one K3 launch on the card); the
+        last superframe is zero-padded.  The frame moves to the codec's
+        device first."""
+        if rgb.dim() != 3 or rgb.shape[-1] != 3 or rgb.dtype != torch.uint8:
+            raise ValueError("encode_rgb needs an (H, W, 3) uint8 frame, got "
+                             f"{tuple(rgb.shape)} {rgb.dtype}")
+        with tracing.span("t3.encode_rgb"):
+            rgb = rgb.to(self.device)
+            n_px, n_words, n_sf = self._rgb_words(*rgb.shape[:2])
+            sfw = self.layout.n_raw_words
+            chunks = torch.empty((n_sf * sfw, 9), dtype=torch.int8,
+                                 device=self.device)
+            chunks[n_words:] = 0
+            with tracing.span("t3.ingest"):
+                wordcodec.ingest9(rgb, out=chunks[:n_words])
+            tracing.count("t3.pixels", n_px)
+            return self.encode(chunks.view(n_sf, sfw, 9))
+
+    def decode_rgb(self, words_T: torch.Tensor, strategy: str = "auto", *,
+                   size: tuple):
+        """Wire planes of one RGB frame (n_sf, 9, 6 + H_body) -> (RGB
+        (H, W, 3) uint8, ok 0-d bool tensor): ``decode(words_T,
+        strategy)``, then ``wordcodec.egress9`` of the whole frame's words,
+        the padding dropped.  ``size`` is the frame's (H, W), which the
+        wire does not carry."""
+        h, w = size
+        n_px, _, n_sf = self._rgb_words(h, w)
+        if words_T.shape[0] != n_sf:
+            raise ValueError(f"a {h}x{w} frame is {n_sf} superframes, got "
+                             f"{words_T.shape[0]}")
+        with tracing.span("t3.decode_rgb"):
+            raw, ok = self.decode(words_T, strategy)
+            with tracing.span("t3.egress"):
+                rgb = wordcodec.egress9(raw[:, :, :self.layout.n_raw_words])
+            tracing.count("t3.pixels", n_px)
+            return rgb.view(-1, 3)[:n_px].view(h, w, 3), ok
 
     def decode_frames(self, words_T: torch.Tensor,
                       repair_cap: int | None = None, sf_batch: int = 64):

@@ -1,4 +1,4 @@
-"""RAW pixel <-> Word27 codecs and the plane-major pixel bridges, in torch.
+"""RAW pixel <-> Word27 codecs and the pixel bridges, in torch.
 
 The JAX package's ops/wordcodec.py.  Two word codecs:
 
@@ -14,9 +14,17 @@ The JAX package's ops/wordcodec.py.  Two word codecs:
 Quantized pixels are (n, 3) int32 [Yq, Cbq, Crq], Yq in [0, 242] and
 Cbq/Crq in [-40, 40].
 
-``ingest9_planes``/``egress9_planes`` are the streaming bridges: RGB
-(3, 2, m) uint8 [channel, pixel parity, word] <-> word9 planes (9, m)
-int8.  The BT.601 rows stay float32, one rounding per operation in the
+Two pairs of pixel bridges share one ingest and one egress chain:
+
+* ``ingest9``/``egress9``, the frame bridges of ``SuperframeCodec.encode_rgb``
+  and ``decode_rgb``: interleaved RGB (..., 3) uint8 in raster order ->
+  word-major word9 words (n, 9) int8, word j holding pixels 2j and
+  2j + 1, and word9 planes (..., 9, m) -> interleaved RGB (..., m, 2, 3);
+* ``ingest9_planes``/``egress9_planes``, the streaming bridges of the
+  micro-batched round trip: RGB (3, 2, m) uint8 [channel, pixel parity,
+  word] <-> word9 planes (9, m) int8.
+
+The BT.601 rows stay float32, one rounding per operation in the
 reference's order (ops/quant.py says why nothing may fuse them); every
 step after the rounding is integer arithmetic.  The trit pack and unpack
 are closed forms over the symbols (``_pack_pair``/``_unpack_pair``) with
@@ -122,7 +130,7 @@ def words13_to_quant(codes: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# plane-major ingest/egress (the streaming e2e path)
+# pixel bridges: ingest9/egress9 (frames), ingest9_planes/egress9_planes
 # ---------------------------------------------------------------------------
 
 
@@ -134,7 +142,8 @@ def _round_u8(v: torch.Tensor) -> torch.Tensor:
 
 
 def ingest9_planes(rgb: torch.Tensor) -> torch.Tensor:
-    """(..., 3, 2, m) uint8 planar RGB -> (..., 9, m) int8 word9 planes.
+    """(..., 3, 2, m) planar RGB, uint8 or its float32 values -> (..., 9, m)
+    int8 word9 planes.
 
     BT.601 RGB -> YCbCr with lround (include/io_image.hpp:66-93), the
     quantization (:80-99) and the 2 px/word trit pack
@@ -160,6 +169,33 @@ def egress9_planes(wplanes: torch.Tensor) -> torch.Tensor:
     cr = ((128 + Q.dequant_c(crq - 40)).clamp(0, 255) - 128).to(torch.float32)
     rgb = [_round_u8(v) for v in Q.rgb_rows(y, cb, cr)]
     return torch.stack(rgb, dim=-3).to(torch.uint8)
+
+
+def ingest9(rgb: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Interleaved RGB (..., 3) uint8, pixels in raster order -> the word9
+    words of its n pixels, written into ``out``, (ceil(n / 2), 9) int8:
+    word j holds pixels 2j and 2j + 1.  An odd last pixel is paired with
+    black, whose quant is the default pixel (0, 0, 0) that
+    ``quant_to_words9`` pads with.  ``ingest9_planes`` between two copies:
+    the pixels to float32 planes (3, 2, m), the word9 planes (9, m) to
+    ``out``."""
+    px = rgb.reshape(-1, 3)
+    if px.shape[0] % 2:
+        px = torch.cat([px, px.new_zeros((1, 3))])
+    pairs = px.view(-1, 2, 3)
+    x = torch.empty((3, 2, pairs.shape[0]), dtype=torch.float32,
+                    device=rgb.device)
+    x.copy_(pairs.permute(2, 1, 0))
+    return out.copy_(ingest9_planes(x).T)
+
+
+def egress9(wplanes: torch.Tensor) -> torch.Tensor:
+    """(..., 9, m) int8 word9 planes (any strides) -> (..., m, 2, 3) uint8
+    interleaved RGB: word w's two pixels in order, so that a frame's
+    planes (n_sf, 9, words a superframe) give its pixels in raster order.
+    ``egress9_planes``, then one copy from (..., 3, 2, m)."""
+    rgb = egress9_planes(wplanes)
+    return rgb.movedim((-3, -1), (-1, -3)).contiguous()
 
 
 # ---------------------------------------------------------------------------
