@@ -7,7 +7,7 @@ Run from the repository root with no arguments:
 Phases, one output line each:
 
 1. device: the card's name and its ``nvidia-smi`` name and power limit;
-2. build: the three CUDA kernels from ``ternary_image_codec_tpu_torch/csrc``
+2. build: the four CUDA sources from ``ternary_image_codec_tpu_torch/csrc``
    and the native host library (``runtime/src/t3native.cpp``);
 3. K2 (RS correction chain) against its plain torch twin on the card, bit
    for bit on every block, for k in {18, 20, 22, 24}: 262,144 codewords
@@ -59,12 +59,17 @@ Phases, one output line each:
    ``decode_header_from_words``'s 2 codewords for K2); after the run the
    frames-batched decode is held equal to two fused decodes; K2 timed on
    the damaged full decode's inputs (k=22, k=20 and the k=18 header
-   chain), K1 on the frames-batched decode's 4,050 superframes; the same
-   frame as (H, W, 3) through ``encode_rgb``/``decode_rgb(..., "auto")``,
-   its launches counted alone (one K3, one K1, no K2), its K1 input held
-   to the twin, its wire and pixels equal to the stream's and the CPU's;
-   ingest, egress, e2e, full, none and frames-batched dirty decode ms per
-   frame;
+   chain), K1 on the frames-batched decode's 4,050 superframes; K4 and
+   K5 (the frame bridges) against their twins on the card on every case of
+   ``bridge_cases`` (every RGB triple and pixel code, random int8 words,
+   1x1 and 3x5 frames, unaligned and strided inputs, one 8K frame each
+   way), one launch a case; the same frame as (H, W, 3) through
+   ``encode_rgb``/``decode_rgb(..., "auto")``, its launches counted alone
+   (one K4, K3, K1 and K5 each, no K2), its counters in a profiler session
+   (``t3.ingest.k4`` and ``t3.egress.k5`` once), its K1 input held to the
+   twin, its wire and pixels equal to the stream's and the CPU's; K4 and
+   K5 timed at 8K beside their 0.0743 ms bound and their twins; ingest,
+   egress, e2e, full, none and frames-batched dirty decode ms per frame;
 7. the serve path at full size: the native CRC library must build; 4
    seeded 8K frames (pinned host memory) through ``StreamExecutor``
    (prefetch 2): H2D, ``enc_serve`` (encode and base-243 wire pack), D2H
@@ -171,7 +176,8 @@ run, ``launches_rgb_entry`` phase 6's ``encode_rgb``/``decode_rgb`` leg, ``launc
 legs, a count per rank, ``launches_bench`` phase 11's tools by leg,
 ``launches_entry`` phase 12's step and decodes; K3's entry counts its
 launches in each phase, ``launches_by_phase``, and a rank's in phase 10's
-legs), the
+legs; ``bridge_ingest`` and ``bridge_egress`` are K4 and K5, their times
+at 8K), the
 ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
 {...}}``.  Any failed check exits nonzero before that line is printed.
 Tolerance everywhere: zero (the codec is integer arithmetic), except the
@@ -292,9 +298,11 @@ def phase_build():
     t0 = time.perf_counter()
     with ThreadPoolExecutor(4) as pool:
         host = pool.submit(native.available)
-        list(pool.map(build.load, ("check_decode", "rs_correct", "encode")))
+        list(pool.map(build.load, ("check_decode", "rs_correct", "encode",
+                                   "bridge")))
         require(host.result(), "g++ did not build runtime/src/t3native.cpp")
-    print(f"[2 build] check_decode.cu, rs_correct.cu, encode.cu with nvcc for "
+    print(f"[2 build] check_decode.cu, rs_correct.cu, encode.cu, bridge.cu "
+          f"with nvcc for "
           f"sm_90a and t3native.cpp with g++, in parallel: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -826,6 +834,84 @@ def pixel_roundtrip(torch, cfg, frame):
         raw_wire="planes", feed=(frame_sf, make), fold=fold)
 
 
+def bridge_cases(torch, dev, full=True):
+    """(name, kind, input) of the inputs K4 and K5 are held to their twins
+    on: RGB (..., 3) uint8 for ``"ingest"``, word9 planes (..., 9, m) int8
+    for ``"egress"``.  Small frames (1x1, 3x5, an odd frame at byte offsets
+    1 and 13 of its buffer), every pixel code (243 * 81 * 81 words),
+    random int8 words over all 256 values, strided planes (a slice, a word
+    stride of 9, a superframe stride, an offset of 5 bytes); with ``full``
+    also all 2^24 RGB triples and one seeded 8K frame each way, its planes
+    as the decode's (n_sf, 9, words) view of (9, m)."""
+    from ternary_image_codec_tpu_torch.ops import wordcodec as wc
+    g = torch.Generator().manual_seed(21)
+
+    def rnd(*shape, lo=0, hi=256, dtype=torch.uint8):
+        return torch.randint(lo, hi, shape, generator=g, dtype=dtype).to(dev)
+    flat = rnd(3 * 3001 + 16)
+    yield "1x1", "ingest", rnd(1, 1, 3)
+    yield "3x5", "ingest", rnd(3, 5, 3)
+    yield "37x61", "ingest", rnd(37, 61, 3)
+    for off in (1, 13):
+        yield f"3001 px at offset {off}", "ingest", \
+            flat[off:off + 3 * 3001].view(3001, 3)
+    y, cb, cr = torch.meshgrid(torch.arange(243), torch.arange(81) - 40,
+                               torch.arange(81) - 40, indexing="ij")
+    codes = wc.quant_to_words9(torch.stack([y, cb, cr], -1).reshape(-1, 3))
+    yield "every pixel code", "egress", codes.T.contiguous().to(dev)
+    words = rnd(3, 9, 3001, lo=-128, hi=128, dtype=torch.int8)
+    yield "random int8 (3, 9, 3001)", "egress", words
+    yield "one word", "egress", words[:1, :, :1]
+    yield "3x5's 8 words", "egress", words[0, :, :8]
+    yield "sliced [:, :, 5:2990]", "egress", words[:, :, 5:2990]
+    yield "word stride 9", "egress", \
+        words.transpose(1, 2).contiguous().transpose(1, 2)
+    yield "offset 5, superframe stride 3,100", "egress", \
+        rnd(3 * 9 * 3100 + 8, lo=-128, hi=128, dtype=torch.int8)[5:] \
+        [:3 * 9 * 3100].view(3, 9, 3100)[:, :, :3001]
+    if full:
+        v = torch.arange(1 << 24, dtype=torch.int32)
+        yield "all 2^24 RGB triples", "ingest", torch.stack(
+            [v >> 16, (v >> 8) & 255, v & 255], -1).to(torch.uint8).to(dev)
+        del v
+        frame = rgb_frame(torch, dev)
+        img = frame.permute(2, 1, 0).reshape(H8K, W8K, 3)
+        yield "8K frame", "ingest", img
+        planes = wc.ingest9_ref(img, torch.empty(
+            (H8K * W8K // 2, 9), dtype=torch.int8, device=dev)).T.contiguous()
+        yield "8K frame's planes (2025, 9, 8192) view", "egress", \
+            planes.view(9, -1, 8192).transpose(0, 1)
+
+
+def hold_bridges(torch, dev, ingest, egress, full=True):
+    """``ingest(rgb, out)`` and ``egress(planes)`` against ``wordcodec.
+    ingest9_ref``/``egress9_ref`` on every ``bridge_cases`` input, bit for
+    bit (the words written into a buffer of 99s); returns the cases'
+    names."""
+    from ternary_image_codec_tpu_torch.ops import wordcodec as wc
+    names = []
+    for name, kind, x in bridge_cases(torch, dev, full):
+        if kind == "ingest":
+            n = -(-x.numel() // 6)
+            got = ingest(x, torch.full((n, 9), 99, dtype=torch.int8,
+                                       device=dev))
+            want = wc.ingest9_ref(x, torch.empty((n, 9), dtype=torch.int8,
+                                                 device=dev))
+        else:
+            got, want = egress(x), wc.egress9_ref(x)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{kind} bridge on {name}: differs from the twin")
+        names.append(f"{kind} {name}")
+    return names
+
+
+def bridge_bound_ms(n_px):
+    """Each bridge's memory bound: 3 bytes a pixel and 9 a word, each moved
+    once, over the HBM rate (248,832,000 B at 8K: 0.0743 ms)."""
+    moved = 3 * n_px + 9 * -(-n_px // 2)
+    return moved / HBM_BPS * 1e3, moved
+
+
 @contextlib.contextmanager
 def kept_inputs(k1, k2):
     """Inside the block, a copy of every K1 input (body, layout) goes to
@@ -876,12 +962,14 @@ def phase_pixel(torch, dev, cfg):
     and two damaged frames through the frames-batched fused decode; one
     profile round trip.  Every K1 and K2 input of that run is then held
     against the kernel's twin, K2 timed on the full strategy's inputs and
-    K1 on the frames-batched decode's.  Returns (launches, K1 and K2 times
-    at those sizes, stage times)."""
+    K1 on the frames-batched decode's.  K4 and K5 against their twins
+    (``hold_bridges``), the RGB entry's launches and counters, K4 and K5
+    timed at 8K.  Returns (launches, K1, K2, K4 and K5 times at those
+    sizes, stage times)."""
     import ternary_image_codec_tpu_torch as port
     from ternary_image_codec_tpu_torch.codec import codec_for
-    from ternary_image_codec_tpu_torch.ops import (dec_cuda, rs, rs_cuda,
-                                                   wordcodec as wc)
+    from ternary_image_codec_tpu_torch.ops import (bridge_cuda, dec_cuda, rs,
+                                                   rs_cuda, wordcodec as wc)
     # every RGB triple (2^24 pixels) and every quantized pixel code
     # (243 * 81 * 81), card against CPU; the CPU run is the one tier-1
     # holds against the JAX package
@@ -898,6 +986,16 @@ def phase_pixel(torch, dev, cfg):
                         wc.egress9_planes(codes)),
             "egress9_planes on the card differs from the CPU on every code")
     del v, cube, codes
+    # K4 and K5 (the frame bridges on the card) against their twins on the
+    # card, one launch a case
+    before = dict(bridge_cuda.launches)
+    bridge_checked = hold_bridges(torch, dev, wc.ingest9, wc.egress9)
+    for kind in ("ingest", "egress"):
+        n = sum(c.startswith(kind) for c in bridge_checked)
+        require(bridge_cuda.launches[kind] - before[kind] == n,
+                f"K4/K5: {bridge_cuda.launches[kind] - before[kind]} {kind} "
+                f"launches for {n} cases")
+    torch.cuda.empty_cache()
 
     frame = rgb_frame(torch, dev)                     # (3, 2, m)
     m, sfw = frame.shape[-1], cfg.superframe_words
@@ -1031,12 +1129,26 @@ def phase_pixel(torch, dev, cfg):
     def rgb_leg():
         wire = codec.encode_rgb(img)
         return (wire,) + codec.decode_rgb(wire, "auto", size=(H8K, W8K))
+    before = dict(bridge_cuda.launches)
     wire, back, ok = counted_leg(legs, k1_rgb, k2_rgb, "rgb_entry", rgb_leg)
+    legs["rgb_entry"].update({f"bridge_{k}": bridge_cuda.launches[k]
+                              - before[k] for k in before})
     launches["rgb_entry"] = legs["rgb_entry"]
     require(legs["rgb_entry"] == {"superframe_encode": 1, "check_decode": 1,
-                                  "rs_correct": 0},
+                                  "rs_correct": 0, "bridge_ingest": 1,
+                                  "bridge_egress": 1},
             f"encode_rgb + decode_rgb(auto) of a clean 8K frame: launches "
-            f"{legs['rgb_entry']}, not one K3, one K1 and no K2")
+            f"{legs['rgb_entry']}, not one K4, K3, K1 and K5 each and no K2")
+    # the leg's counters in a profiler session: K4 and K5 once a request
+    from ternary_image_codec_tpu_torch.runtime import tracing
+    tracing.report(reset=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        rgb_leg()
+    counts = tracing.report(reset=True)["counts"]
+    require(counts.get("t3.ingest.k4") == 1 and counts.get("t3.egress.k5") == 1,
+            f"encode_rgb + decode_rgb under a profiler: counters {counts}, "
+            "not t3.ingest.k4 and t3.egress.k5 once each")
     for body, layout in k1_rgb:
         require(layout is codec.dlayout, "decode_rgb's K1 ran on another "
                 "layout than the stream's")
@@ -1056,6 +1168,23 @@ def phase_pixel(torch, dev, cfg):
             "decode_rgb on the card differs from the CPU")
     cpu_s = time.perf_counter() - t0
     del cpu, back_cpu
+
+    # K4 and K5 at 8K: the frame into the words, the decode's planes back
+    raw_rgb, _ok = codec.decode(wire, "auto")
+    raw_rgb = raw_rgb[:, :, :sfw]
+    words_rgb = torch.empty((m, 9), dtype=torch.int8, device=dev)
+    bound, moved = bridge_bound_ms(2 * m)
+    at_sizes["bridge"] = {}
+    for name, run, twin in (
+            ("ingest", lambda: bridge_cuda.ingest(img, words_rgb),
+             lambda: wc.ingest9_ref(img, words_rgb)),
+            ("egress", lambda: bridge_cuda.egress(raw_rgb),
+             lambda: wc.egress9_ref(raw_rgb))):
+        at_sizes["bridge"][name] = {
+            "ms": cuda_ms(torch, run, 20), "device_ms": graph_ms(torch, run, 20),
+            "plain_ms": cuda_ms(torch, twin, 2), "bound_ms": bound,
+            "bytes": moved}
+    del raw_rgb, words_rgb
 
     # warm times, ms per frame
     times = {
@@ -1080,6 +1209,8 @@ def phase_pixel(torch, dev, cfg):
           f"frames-batched fused decode of 2 damaged frames all exact "
           f"(words and pixels; frames-batched equal to two fused decodes); "
           f"profile round trip at {n_prof} words, 8 body errors, exact; "
+          f"K4/K5 equal to their twins on the card on "
+          f"{len(bridge_checked)} inputs ({'; '.join(bridge_checked)}); "
           f"encode_rgb/decode_rgb of the frame as (H, W, 3) equal to the "
           f"stream's words and pixels and to the CPU's ({cpu_s:.1f} s), "
           f"launches {launches['rgb_entry']}, its K1 input bit-equal to "
@@ -2698,7 +2829,14 @@ def main():
          "ms": k3["ms"], "device_ms": k3["device_ms"],
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
-    ]
+    ] + [
+        {"name": f"bridge_{kind}", "route": "cuda",
+         "source": "ternary_image_codec_tpu_torch/csrc/bridge.cu",
+         "replaces": None,
+         "launches_rgb_entry": launches_px["rgb_entry"][f"bridge_{kind}"],
+         "max_abs_err": 0, **at_sizes["bridge"][kind], "bound_by": "bytes",
+         "library_ms": None}
+        for kind in ("ingest", "egress")]
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,14 @@ with the C++ double-semantics fix-ups on dequantization
 (``_double_semantics_fixups``).  The RGB <-> YCbCr rows are float32, as in
 the C++: each product and each sum is one torch operation, rounded to
 float32 on its own, in the reference's order, with float32 constants.
-Never fuse them (``torch.addcmul``, ``alpha=``, ``torch.lerp``,
-``torch.compile`` or a hand-written kernel may contract a product and a
-sum into one FMA on the card, which moves ties); tests/test_torch_bridge.py
-holds these functions against the C++ golden file and the card's run
-against the CPU's (chip_smoke.py).
+Never fuse them: ``torch.addcmul``, ``alpha=``, ``torch.lerp`` or
+``torch.compile`` may contract a product and a sum into one FMA on the
+card, which moves ties.  The hand-written frame bridges K4/K5
+(csrc/bridge.cu) keep each rounding by writing every product and sum as
+one ``__fmul_rn``, ``__fadd_rn`` or ``__fsub_rn``, which the compiler never
+contracts.  tests/test_torch_bridge.py holds these functions against the
+C++ golden file, chip_smoke.py the card's run against the CPU's and
+K4/K5 against their twins.
 
 Functions take tensors and compute on the tensor's device.
 

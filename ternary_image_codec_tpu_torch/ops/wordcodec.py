@@ -14,22 +14,28 @@ The JAX package's ops/wordcodec.py.  Two word codecs:
 Quantized pixels are (n, 3) int32 [Yq, Cbq, Crq], Yq in [0, 242] and
 Cbq/Crq in [-40, 40].
 
-Two pairs of pixel bridges share one ingest and one egress chain:
+Two pairs of pixel bridges:
 
 * ``ingest9``/``egress9``, the frame bridges of ``SuperframeCodec.encode_rgb``
   and ``decode_rgb``: interleaved RGB (..., 3) uint8 in raster order ->
   word-major word9 words (n, 9) int8, word j holding pixels 2j and
-  2j + 1, and word9 planes (..., 9, m) -> interleaved RGB (..., m, 2, 3);
+  2j + 1, and word9 planes (..., 9, m) -> interleaved RGB (..., m, 2, 3).
+  A CUDA tensor goes to one hand-written kernel each way, K4 and K5
+  (csrc/bridge.cu via ``bridge_cuda``); any other to the plain twins
+  ``ingest9_ref``/``egress9_ref``, the streaming bridges' chains between
+  copies;
 * ``ingest9_planes``/``egress9_planes``, the streaming bridges of the
   micro-batched round trip: RGB (3, 2, m) uint8 [channel, pixel parity,
-  word] <-> word9 planes (9, m) int8.
+  word] <-> word9 planes (9, m) int8, torch on every device.
 
 The BT.601 rows stay float32, one rounding per operation in the
-reference's order (ops/quant.py says why nothing may fuse them); every
-step after the rounding is integer arithmetic.  The trit pack and unpack
-are closed forms over the symbols (``_pack_pair``/``_unpack_pair``) with
-the floor semantics of the reference's digit chains, so any int8 word,
-valid or not, decodes as the reference decodes it.
+reference's order (ops/quant.py says why nothing may fuse them): one
+torch op each here, one ``__fmul_rn``/``__fadd_rn``/``__fsub_rn`` each in
+K4/K5; every step after the rounding is integer arithmetic.  The trit
+pack and unpack are closed forms over the symbols
+(``_pack_pair``/``_unpack_pair``) with the floor semantics of the
+reference's digit chains, so any int8 word, valid or not, decodes as the
+reference decodes it.
 
 Functions take tensors and compute on the tensor's device.
 """
@@ -38,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SubwordMode
+from . import bridge_cuda
 from . import quant as Q
 
 POW3_4 = 81
@@ -176,9 +183,18 @@ def ingest9(rgb: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     words of its n pixels, written into ``out``, (ceil(n / 2), 9) int8:
     word j holds pixels 2j and 2j + 1.  An odd last pixel is paired with
     black, whose quant is the default pixel (0, 0, 0) that
-    ``quant_to_words9`` pads with.  ``ingest9_planes`` between two copies:
-    the pixels to float32 planes (3, 2, m), the word9 planes (9, m) to
-    ``out``."""
+    ``quant_to_words9`` pads with.  On a CUDA tensor K4 in one launch
+    (``bridge_cuda.ingest``: ``out`` contiguous on the same device, else
+    it raises); otherwise ``ingest9_ref``."""
+    if rgb.device.type == "cuda":
+        return bridge_cuda.ingest(rgb, out)
+    return ingest9_ref(rgb, out)
+
+
+def ingest9_ref(rgb: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``ingest9``'s plain twin, on any device: ``ingest9_planes`` between
+    two copies, the pixels to float32 planes (3, 2, m), the word9 planes
+    (9, m) to ``out``."""
     px = rgb.reshape(-1, 3)
     if px.shape[0] % 2:
         px = torch.cat([px, px.new_zeros((1, 3))])
@@ -193,7 +209,17 @@ def egress9(wplanes: torch.Tensor) -> torch.Tensor:
     """(..., 9, m) int8 word9 planes (any strides) -> (..., m, 2, 3) uint8
     interleaved RGB: word w's two pixels in order, so that a frame's
     planes (n_sf, 9, words a superframe) give its pixels in raster order.
-    ``egress9_planes``, then one copy from (..., 3, 2, m)."""
+    On a CUDA tensor K5 in one launch, reading the planes where they lie
+    (``bridge_cuda.egress``; raises on a tensor it does not take);
+    otherwise ``egress9_ref``."""
+    if wplanes.device.type == "cuda":
+        return bridge_cuda.egress(wplanes)
+    return egress9_ref(wplanes)
+
+
+def egress9_ref(wplanes: torch.Tensor) -> torch.Tensor:
+    """``egress9``'s plain twin, on any device: ``egress9_planes``, then one
+    copy from (..., 3, 2, m)."""
     rgb = egress9_planes(wplanes)
     return rgb.movedim((-3, -1), (-1, -3)).contiguous()
 
