@@ -232,6 +232,22 @@ def require(cond, msg):
         raise SmokeFailure(msg)
 
 
+K12 = ("check_decode", "rs_correct")
+
+
+def launch_counts():
+    """A copy of the port's launch counter by kernel (``runtime/build.py``)."""
+    from ternary_image_codec_tpu_torch.runtime import build
+    return build.launches.copy()
+
+
+def launches_since(before, kernels=K12):
+    """Launches of ``kernels`` in this process since ``before``, a copy
+    ``launch_counts`` took."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in kernels}
+
+
 def cuda_ms(torch, fn, reps):
     """Mean device time of fn over reps launches (after one warm-up)."""
     fn()
@@ -604,10 +620,10 @@ def phase_k3(torch, dev):
                           for b in x.split(SF_BATCH)])
 
     def equal(x, codec, what):
-        before = enc_cuda.launches
+        before = launch_counts()
         got = encode.encode_superframes(x, codec.layout, codec.tables())
-        require(enc_cuda.launches == before + 1,
-                f"K3 {what}: {enc_cuda.launches - before} launches")
+        n = (launch_counts() - before)["superframe_encode"]
+        require(n == 1, f"K3 {what}: {n} launches")
         require(torch.equal(got, twin(x, codec)),
                 f"K3 {what}: wire planes differ from the twin")
         checked.append(what)
@@ -691,7 +707,7 @@ def k2_real_windows(torch, windows):
 def phase_main(torch, dev, cfg):
     import ternary_image_codec_tpu_torch as port
     from ternary_image_codec_tpu_torch.bench.headline import base_chunks
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, gf27, rs_cuda
+    from ternary_image_codec_tpu_torch.ops import gf27
 
     # one 8K frame of RAW words, trit 26 zero (bench.py's generator)
     n_raw = W8K * H8K // 2
@@ -708,8 +724,7 @@ def phase_main(torch, dev, cfg):
             words, cfg, n_raw, sf_batch=SF_BATCH, strategy=strategy,
             repair_cap=REPAIR_CAP)
 
-    dec_cuda.launches = 0
-    rs_cuda.launches = 0
+    before = launch_counts()
     ms_enc, words = wall_ms(torch, enc)
     total_w = words.shape[1]
     require(tuple(words.shape) == (n_sf, total_w, 9),
@@ -755,8 +770,7 @@ def phase_main(torch, dev, cfg):
                       + gf27.sym_to_dig(e)))
     _, ok = dec(over_T.transpose(1, 2))
     require(not bool(ok), "overcap damage: ok is True")
-    launches = {"check_decode": dec_cuda.launches,
-                "rs_correct": rs_cuda.launches}
+    launches = launches_since(before)
     require(all(v > 0 for v in launches.values()),
             f"a kernel never ran on the main path: {launches}")
     real = k2_real_windows(torch, windows)
@@ -988,13 +1002,14 @@ def phase_pixel(torch, dev, cfg):
     del v, cube, codes
     # K4 and K5 (the frame bridges on the card) against their twins on the
     # card, one launch a case
-    before = dict(bridge_cuda.launches)
+    before = launch_counts()
     bridge_checked = hold_bridges(torch, dev, wc.ingest9, wc.egress9)
+    ran = launch_counts() - before
     for kind in ("ingest", "egress"):
         n = sum(c.startswith(kind) for c in bridge_checked)
-        require(bridge_cuda.launches[kind] - before[kind] == n,
-                f"K4/K5: {bridge_cuda.launches[kind] - before[kind]} {kind} "
-                f"launches for {n} cases")
+        require(ran[f"bridge_{kind}"] == n,
+                f"K4/K5: {ran[f'bridge_{kind}']} {kind} launches for {n} "
+                "cases")
     torch.cuda.empty_cache()
 
     frame = rgb_frame(torch, dev)                     # (3, 2, m)
@@ -1019,8 +1034,7 @@ def phase_pixel(torch, dev, cfg):
     # the pixel path's run: the launch counts and every kernel input are
     # read from here to the end of the profile round trip
     k1_in, k2_in, k2_full = [], [], []
-    dec_cuda.launches = 0
-    rs_cuda.launches = 0
+    before = launch_counts()
     with kept_inputs(k1_in, k2_in):
         rgb_rt, ok = e2e()
         require(bool(ok.all()), "e2e roundtrip (feed, fold): ok is False")
@@ -1054,8 +1068,7 @@ def phase_pixel(torch, dev, cfg):
                 and torch.equal(out[:n_prof], prof_raw),
                 f"profile round trip at {n_prof} words with 8 body errors "
                 "failed")
-    launches = {"check_decode": dec_cuda.launches,
-                "rs_correct": rs_cuda.launches}
+    launches = launches_since(before)
     require(all(v > 0 for v in launches.values()),
             f"a kernel never ran on the pixel path: {launches}")
     require(launches == {"check_decode": len(k1_in), "rs_correct": len(k2_in)},
@@ -1129,10 +1142,10 @@ def phase_pixel(torch, dev, cfg):
     def rgb_leg():
         wire = codec.encode_rgb(img)
         return (wire,) + codec.decode_rgb(wire, "auto", size=(H8K, W8K))
-    before = dict(bridge_cuda.launches)
+    before = launch_counts()
     wire, back, ok = counted_leg(legs, k1_rgb, k2_rgb, "rgb_entry", rgb_leg)
-    legs["rgb_entry"].update({f"bridge_{k}": bridge_cuda.launches[k]
-                              - before[k] for k in before})
+    legs["rgb_entry"].update(launches_since(before, ["bridge_ingest",
+                                                     "bridge_egress"]))
     launches["rgb_entry"] = legs["rgb_entry"]
     require(legs["rgb_entry"] == {"superframe_encode": 1, "check_decode": 1,
                                   "rs_correct": 0, "bridge_ingest": 1,
@@ -1352,7 +1365,6 @@ def phase_serve(torch, dev, cfg):
     import os
     import tempfile
     from ternary_image_codec_tpu_torch.codec import codec_for
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
     from ternary_image_codec_tpu_torch.runtime import native
     from ternary_image_codec_tpu_torch.security import policy
     require(native.available(), "the native CRC library did not build: "
@@ -1364,13 +1376,11 @@ def phase_serve(torch, dev, cfg):
     k1_in, k2_in = [], []
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "serve.t3v")
-        dec_cuda.launches = 0
-        rs_cuda.launches = 0
+        before = launch_counts()
         with kept_inputs(k1_in, k2_in):
             cks, wsplit, wms = serve_write(torch, cfg, n_raw, frames, path, dev)
             res, rsplit, rms = serve_read(torch, cfg, n_raw, path, dev, admit)
-        launches = {"check_decode": dec_cuda.launches,
-                    "rs_correct": rs_cuda.launches}
+        launches = launches_since(before)
         require(launches == {"check_decode": SERVE_FRAMES, "rs_correct": 0}
                 and len(k1_in) == SERVE_FRAMES and not k2_in,
                 f"serve launches {launches}, {len(k1_in)} K1 inputs kept: "
@@ -1411,18 +1421,12 @@ def phase_serve(torch, dev, cfg):
     return launches, times
 
 def counted_leg(legs, k1_in, k2_in, name, fn):
-    """fn() with the K1 and K2 launch counters set to 0 just before it
-    and read into ``legs[name]`` just after, with K3's launches during it;
-    every K1 and K2 input of it is kept (``kept_inputs``)."""
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, enc_cuda, rs_cuda
-    dec_cuda.launches = 0
-    rs_cuda.launches = 0
-    k3 = enc_cuda.launches
+    """fn() with its K1, K2 and K3 launches read into ``legs[name]``; every
+    K1 and K2 input of it is kept (``kept_inputs``)."""
+    before = launch_counts()
     with kept_inputs(k1_in, k2_in):
         out = fn()
-    legs[name] = {"check_decode": dec_cuda.launches,
-                  "rs_correct": rs_cuda.launches,
-                  "superframe_encode": enc_cuda.launches - k3}
+    legs[name] = launches_since(before, [*K12, "superframe_encode"])
     return out
 
 
@@ -1946,7 +1950,6 @@ def phase_protos(torch, dev):
     import shutil
     import tempfile
     from ternary_image_codec_tpu_torch.io import image as I
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
     has_pil = importlib.util.find_spec("PIL") is not None
     has_ffmpeg = shutil.which("ffmpeg") is not None
     print(json.dumps({"pil": has_pil, "ffmpeg": has_ffmpeg}), flush=True)
@@ -1981,13 +1984,11 @@ def phase_protos(torch, dev):
         legs, k1_in, k2_in = {}, [], []
 
         def counted(leg, fn):
-            dec_cuda.launches = 0
-            rs_cuda.launches = 0
+            before = launch_counts()
             t0 = time.perf_counter()
             with kept_inputs(k1_in, k2_in):
                 out = fn()
-            legs[leg] = {"check_decode": dec_cuda.launches,
-                         "rs_correct": rs_cuda.launches,
+            legs[leg] = {**launches_since(before),
                          "s": time.perf_counter() - t0}
             return out
         tools = tool_legs(torch, dev, d, paths["HAAR_TERNARY"], png, counted)
@@ -2292,7 +2293,6 @@ def mesh_leg(torch, mesh, name, sizes):
     """One leg on this rank: its run with the launch counts read from it
     alone and every K1/K2 input kept, its checks, the kept inputs held to
     the twins, then its warm times.  Returns host data."""
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, enc_cuda, rs_cuda
     dev = mesh.device
     cuda = dev.type == "cuda"
     run, check, timed = MESH_LEGS[name](torch, mesh, sizes)
@@ -2302,14 +2302,10 @@ def mesh_leg(torch, mesh, name, sizes):
         torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev) if cuda else 0
     t0 = time.perf_counter()
-    dec_cuda.launches = 0
-    rs_cuda.launches = 0
-    k3 = enc_cuda.launches
+    before = launch_counts()
     with kept_inputs(k1_in, k2_in):
         out = run()
-    launches = {"check_decode": dec_cuda.launches,
-                "rs_correct": rs_cuda.launches,
-                "superframe_encode": enc_cuda.launches - k3}
+    launches = launches_since(before, [*K12, "superframe_encode"])
     res = check(out)
     del out
     res["s"] = time.perf_counter() - t0
@@ -2341,15 +2337,12 @@ def dryrun_rank(rank, world):
     """``dryrun_multichip``'s rank (parallel/dryrun.py) with its K1/K2
     launches read and every kernel input kept and held to the twin."""
     import torch
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
     from ternary_image_codec_tpu_torch.parallel import dryrun, launch
     k1_in, k2_in = [], []
-    dec_cuda.launches = 0
-    rs_cuda.launches = 0
+    before = launch_counts()
     with kept_inputs(k1_in, k2_in):
         line = dryrun.dryrun_rank(rank, world)
-    launches = {"check_decode": dec_cuda.launches,
-                "rs_correct": rs_cuda.launches}
+    launches = launches_since(before)
     hold_kept(torch, launch.rank_device(), k1_in, k2_in, "dryrun")
     return {"summary": line, "launches": launches}
 
@@ -2371,7 +2364,6 @@ def phase_mesh(torch, dev, smi_line):
     every kernel input a rank launches is held to the twin in that rank.
     Returns (launches by leg and rank, times)."""
     from ternary_image_codec_tpu_torch.cli import channel_qa
-    from ternary_image_codec_tpu_torch.ops import rs_cuda
     from ternary_image_codec_tpu_torch.parallel import launch
     torch.cuda.empty_cache()           # the ranks share the card
     legs = {}
@@ -2406,10 +2398,10 @@ def phase_mesh(torch, dev, smi_line):
                   f"rank, and {n_cards} card is visible")
     # (e)
     k2_in = []
-    rs_cuda.launches = 0
+    before = launch_counts()
     with kept_inputs([], k2_in):
         rc, out_card = run_tool(channel_qa, ["--device", "cuda", "--json"])
-    qa_launches = rs_cuda.launches
+    qa_launches = (launch_counts() - before)["rs_correct"]
     rc_cpu, out_cpu = run_tool(channel_qa, ["--device", "cpu", "--json"])
     require(rc == rc_cpu == 0 and out_card == out_cpu,
             "channel_qa on the card differs from its CPU run")
@@ -2525,24 +2517,23 @@ def bench_keep(torch, dev, held):
     input is kept (``kept_inputs``); on leaving it, each is held bit-equal
     to the kernel's twin (those launches are taken back off the counters)
     and ``held[leg]`` gets the counts."""
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
+    from ternary_image_codec_tpu_torch.runtime import build
 
     @contextlib.contextmanager
     def keep(leg):
         k1_in, k2_in = [], []
         with kept_inputs(k1_in, k2_in):
             yield
-        n1, n2 = dec_cuda.launches, rs_cuda.launches
+        before = launch_counts()
         hold_kept(torch, dev, k1_in, k2_in, f"bench {leg}")
-        dec_cuda.launches, rs_cuda.launches = n1, n2
+        build.launches.subtract(launches_since(before))
         held[leg] = {"check_decode": len(k1_in), "rs_correct": len(k2_in)}
     return keep
 
 
 def phase_bench(torch, dev, smi_line):
     """The four benchmark entry points of ``bench/`` in-process on the card
-    at their defaults, each with the launch counters set to 0 just before
-    it and read just after: every exactness check of the tools must pass
+    at their defaults, each with its launches read: every exactness check of the tools must pass
     (exit 0), K1 must launch in the headline's clean, e2e and dirty legs and
     in serve's read, K2 in the dirty leg, in every k of rs_bench and in both
     full-mode legs, the per-leg counts the tools print must add up to the
@@ -2552,7 +2543,6 @@ def phase_bench(torch, dev, smi_line):
     bit-equal to the twin.  Prints each tool's JSON line.  Returns
     {tool: {leg: launches}}."""
     import importlib
-    from ternary_image_codec_tpu_torch.ops import dec_cuda, rs_cuda
     torch.cuda.empty_cache()
     out = {}
     for name in BENCH_TOOLS:
@@ -2560,11 +2550,9 @@ def phase_bench(torch, dev, smi_line):
             f"ternary_image_codec_tpu_torch.bench.{name}")
         held = {}
         t0 = time.perf_counter()
-        dec_cuda.launches = 0
-        rs_cuda.launches = 0
+        before = launch_counts()
         rc, text = run_tool(tool, [], keep=bench_keep(torch, dev, held))
-        launches = {"check_decode": dec_cuda.launches,
-                    "rs_correct": rs_cuda.launches}
+        launches = launches_since(before)
         require(rc == 0, f"bench {name}: exit {rc}")
         line = text.strip().splitlines()[-1]
         res = json.loads(line)
@@ -2729,15 +2717,13 @@ def main():
                              uep=port.uep_luma_priority())
     codec = port.SuperframeCodec(cfg, device=dev)
     n_sf = -(-(W8K * H8K // 2) // cfg.superframe_words)
-    from ternary_image_codec_tpu_torch.ops import enc_cuda
     k3_by_phase = {}
 
     def k3_counted(phase, fn, *args):
-        """fn(*args) with K3's launches in this process read into
-        ``k3_by_phase[phase]``."""
-        enc_cuda.launches = 0
+        """fn(*args) with its K3 launches read into ``k3_by_phase[phase]``."""
+        before = launch_counts()
         out = fn(*args)
-        k3_by_phase[phase] = enc_cuda.launches
+        k3_by_phase[phase] = (launch_counts() - before)["superframe_encode"]
         return out
 
     k1 = k3_counted("4 K1", phase_k1, torch, dev, codec, n_sf)

@@ -60,9 +60,9 @@ from ..cli import add_device_arg
 from ..codec import codec_for, resolve_device
 from ..config import (EncoderConfig, ProfileID, SparseBeaconCfg, Tile2D,
                       uep_luma_priority)
-from ..ops import dec_cuda, pipeline, rs_cuda
+from ..ops import pipeline
 from ..ops import wordcodec as wc
-from ..runtime import tracing
+from ..runtime import build, tracing
 from . import damage as dmg
 from . import peak_bytes, require, run_main
 
@@ -136,13 +136,13 @@ def sync(dev: torch.device) -> None:
 @contextlib.contextmanager
 def counted(into: dict, leg: str):
     """K1 and K2 launches of the block, added to ``into[leg]``."""
-    k1, k2 = dec_cuda.launches, rs_cuda.launches
+    before = build.launches.copy()
     try:
         yield
     finally:
         n = into.setdefault(leg, {"check_decode": 0, "rs_correct": 0})
-        n["check_decode"] += dec_cuda.launches - k1
-        n["rs_correct"] += rs_cuda.launches - k2
+        for kernel in n:
+            n[kernel] += build.launches[kernel] - before[kernel]
 
 
 def base_chunks(n_raw: int, sf: int, rng: np.random.Generator):

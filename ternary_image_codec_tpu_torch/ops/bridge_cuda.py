@@ -19,11 +19,8 @@ import functools
 import numpy as np
 import torch
 
-from ..runtime import build, tracing
+from ..runtime import build
 from . import quant as Q
-
-# kernel launches in this process
-launches = {"ingest": 0, "egress": 0}
 
 MAX_FIX = 16
 
@@ -84,14 +81,8 @@ def ingest(rgb: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     if n_px == 0:
         return out
     rgb = rgb.contiguous()
-    lib = _lib()
-    with torch.cuda.device(rgb.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.t3_bridge_ingest(rgb.data_ptr(), n_px, out.data_ptr(),
-                                   stream)
-    build.check(lib, err, "pixel ingest launch")
-    launches["ingest"] += 1
-    tracing.count("t3.ingest.k4", 1)
+    build.launch(_lib(), "t3_bridge_ingest", rgb.device, rgb.data_ptr(),
+                 n_px, out.data_ptr(), counter="t3.ingest.k4")
     return out
 
 
@@ -115,13 +106,8 @@ def egress(wplanes: torch.Tensor) -> torch.Tensor:
         return out
     if planes.stride(-1) != 1:
         planes = planes.contiguous()
-    lib = _lib()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.t3_bridge_egress(
-            planes.data_ptr(), planes.shape[0], m, *planes.stride()[:2],
-            _consts(planes.device).data_ptr(), out.data_ptr(), stream)
-    build.check(lib, err, "pixel egress launch")
-    launches["egress"] += 1
-    tracing.count("t3.egress.k5", 1)
+    build.launch(_lib(), "t3_bridge_egress", planes.device,
+                 planes.data_ptr(), planes.shape[0], m, *planes.stride()[:2],
+                 _consts(planes.device).data_ptr(), out.data_ptr(),
+                 counter="t3.egress.k5")
     return out

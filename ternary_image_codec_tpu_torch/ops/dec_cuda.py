@@ -30,9 +30,6 @@ from ..config import NUM_BANDS
 from ..runtime import build
 from . import rs, scramble
 
-# kernel launches made by check_decode in this process
-launches = 0
-
 LUT_WORDS = 2 * NUM_BANDS * 256
 BFRAG_OFF = LUT_WORDS
 BAND_OFF = BFRAG_OFF + 32 * 24
@@ -166,10 +163,9 @@ def _validate(body: torch.Tensor, layout):
 def _plan(device, row_stride, nblk, kmax) -> dict:
     """The kernel's plan for one geometry on one device (csrc
     ``t3_check_decode_plan``)."""
-    lib, got = _lib(), (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        err = lib.t3_check_decode_plan(row_stride, nblk, kmax, got)
-    build.check(lib, err, "check_decode plan")
+    got = (ctypes.c_int * 5)()
+    build.call(_lib(), "t3_check_decode_plan", device, row_stride, nblk,
+               kmax, got)
     return dict(zip(("staged", "max_grid", "smem", "blocks_per_sm",
                      "stream_bytes"), got))
 
@@ -197,7 +193,6 @@ def check_decode(body: torch.Tensor, layout):
     int8, ok (n_sf,) bool).  The body may be a view into wire planes
     (n_sf, 9, 6 + H) as long as its last axis is contiguous.  Raises on a
     layout ``supported`` rejects and on a tensor the kernel does not take."""
-    global launches
     _validate(body, layout)
     n = body.shape[0]
     n_out = layout.n_out_words
@@ -207,19 +202,12 @@ def check_decode(body: torch.Tensor, layout):
     if n == 0:
         return out, ok
     consts = _consts(layout, body.device)
-    lib = _lib()
     need = _launch_plan(body, layout)["scratch"]
     scratch = torch.empty((need,), dtype=torch.uint8, device=body.device) \
         if need else None
-    with torch.cuda.device(body.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.t3_check_decode(body.data_ptr(), body.stride(0),
-                                  body.stride(1), n, layout.geom.blocks[0],
-                                  max(layout.geom.ks), n_out,
-                                  consts.data_ptr(), out.data_ptr(),
-                                  ok.data_ptr(),
-                                  None if scratch is None
-                                  else scratch.data_ptr(), stream)
-    build.check(lib, err, "check_decode launch")
-    launches += 1
+    build.launch(_lib(), "t3_check_decode", body.device, body.data_ptr(),
+                 body.stride(0), body.stride(1), n, layout.geom.blocks[0],
+                 max(layout.geom.ks), n_out, consts.data_ptr(),
+                 out.data_ptr(), ok.data_ptr(),
+                 None if scratch is None else scratch.data_ptr())
     return out, ok

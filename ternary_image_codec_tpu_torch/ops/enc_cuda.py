@@ -36,12 +36,9 @@ import numpy as np
 import torch
 
 from ..config import NUM_BANDS
-from ..runtime import build, tracing
+from ..runtime import build
 from . import dec_cuda, interleave, rs, scramble
 from .pipeline import HEADER_WORDS, _is_p5, _stream_len, k_groups, parity_map
-
-# kernel launches made by encode in this process
-launches = 0
 
 TILE = 16                        # codewords of one band per mma row tile
 UNIT_COLS = 1760                 # data columns of each band a unit takes
@@ -268,7 +265,6 @@ def encode(chunks: torch.Tensor, layout) -> torch.Tensor:
     (n, 9, 6 + H) int8 in one launch, equal to ``encode_superframes``' twin.
     A strided input is made contiguous once.  Raises on a tensor the kernel
     does not take."""
-    global launches
     _validate(chunks, layout)
     n, H = chunks.shape[0], layout.geom.H
     out = torch.empty((n, NUM_BANDS, HEADER_WORDS + H), dtype=torch.int8,
@@ -279,14 +275,8 @@ def encode(chunks: torch.Tensor, layout) -> torch.Tensor:
     p = plan(layout)
     consts = _consts(layout, chunks.device)
     perm = _perm(layout, chunks.device)
-    lib = _lib()
-    with torch.cuda.device(chunks.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.t3_superframe_encode(
-            chunks.data_ptr(), n, layout.n_raw_words, p["units"],
-            p["smem"], None if perm is None else perm.data_ptr(),
-            consts.data_ptr(), out.data_ptr(), stream)
-    build.check(lib, err, "superframe encode launch")
-    launches += 1
-    tracing.count("t3.encode.k3", 1)
+    build.launch(_lib(), "t3_superframe_encode", chunks.device,
+                 chunks.data_ptr(), n, layout.n_raw_words, p["units"],
+                 p["smem"], None if perm is None else perm.data_ptr(),
+                 consts.data_ptr(), out.data_ptr(), counter="t3.encode.k3")
     return out

@@ -611,33 +611,15 @@ def beacon_paged(blocks: torch.Tensor, k: int, T: dict):
     own blocks: 16-block pages (the last padded with zero blocks), the
     first ``BEACON_PAGES`` dirty pages of that superframe repaired, the
     dirty pages past them kept as they are with ok False.  The repairs of
-    all n superframes run as one chain (one K2 launch on the card)."""
+    all n superframes run as one chain (``rs.correct_pages``)."""
     n, B = blocks.shape[:2]
     npage = -(-B // PAGE)
-    C = min(BEACON_PAGES, npage)
     rd = torch.nn.functional.pad(blocks, (0, 0, 0, 0, 0, npage * PAGE - B))
-    dirty = _beacon_dirty(rd, k, T)                         # (n, npage*16)
-    pdirty = dirty.view(n, npage, PAGE).any(-1)
-    psafe = rs.first_dirty_pages(pdirty, C)                 # (n, C)
-    pages = rd.view(n, npage, PAGE * rs.N * 3)
-    g_rd = torch.gather(pages, 1, psafe[..., None].expand(
-        -1, -1, pages.shape[-1])).view(n, C, PAGE, rs.N, 3)
-    g_rd = g_rd.permute(4, 3, 0, 1, 2).reshape(3, rs.N, n * C * PAGE)
-    d_c, ok_c = rs.correct_pm(g_rd.contiguous(), k, _rs_maps(T, k))
-    slot, use_corr = rs.slot_merge(pdirty, C)               # (n, npage)
-    rs.count_dirty_sent(dirty.view(n, npage, PAGE), use_corr)
-    dpages = d_c.reshape(3, k, n, C, PAGE).permute(2, 3, 4, 1, 0) \
-        .reshape(n, C, PAGE * k * 3)
-    corr = torch.gather(dpages, 1, slot[..., None].expand(
-        -1, -1, dpages.shape[-1])).view(n, npage, PAGE, k, 3)
-    orig = rd[:, :, :k].reshape(n, npage, PAGE, k, 3)
-    data = torch.where(use_corr[:, :, None, None, None], corr, orig)
-    ok_pages = torch.gather(ok_c.view(n, C, PAGE), 1,
-                            slot[..., None].expand(-1, -1, PAGE))
-    ok = torch.where(use_corr[..., None], ok_pages,
-                     ~dirty.view(n, npage, PAGE))
-    return (data.reshape(n, npage * PAGE, k, 3)[:, :B],
-            ok.reshape(n, -1)[:, :B])
+    dirty = _beacon_dirty(rd, k, T).view(n, npage, PAGE)
+    data, ok = rs.correct_pages(rd.view(n, npage, PAGE, rs.N, 3), dirty, k,
+                                min(BEACON_PAGES, npage), _rs_maps(T, k))
+    return (data.view(n, npage * PAGE, k, 3)[:, :B],
+            ok.view(n, -1)[:, :B])
 
 
 def check_route(dlayout: DecodeLayout) -> str:
@@ -700,33 +682,12 @@ def paged_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
                 continue
             r, g = rs.N - k, len(grp.bands)
             bidx = torch.as_tensor(grp.bands, device=body.device)
-            C = min(g * npage, max(6, g))
             dirty = (S_all[:, bidx, :, :, :r] != 0).flatten(3).any(-1) \
-                .reshape(n, g * npage, PAGE)
-            pdirty = dirty.any(-1)
-            psafe = rs.first_dirty_pages(pdirty, C)              # (n, C)
-            pages = gv[:, bidx, :nblk_p].reshape(n, g * npage,
-                                                 PAGE * rs.N * 3)
-            g_rd = torch.gather(pages, 1, psafe[..., None].expand(
-                -1, -1, pages.shape[-1])).reshape(n, C, PAGE, rs.N, 3)
-            g_rd = g_rd.permute(4, 3, 0, 1, 2).reshape(3, rs.N, n * C * PAGE)
-            d_c, ok_c = rs.correct_pm(g_rd.contiguous(), k,
-                                      _rs_maps(T, k))          # (3, k, nCP)
-            delta = mod3(d_c.to(torch.int16) - g_rd[:, :k]).to(torch.int8)
-            slot, use_corr = rs.slot_merge(pdirty, C)          # (n, g*npage)
-            rs.count_dirty_sent(dirty, use_corr)
-            dpages = delta.reshape(3, k, n, C, PAGE).permute(2, 3, 4, 1, 0) \
-                .reshape(n, C, PAGE * k * 3)
-            dsel = torch.gather(dpages, 1, slot[..., None].expand(
-                -1, -1, dpages.shape[-1]))
-            dsel = torch.where(use_corr[..., None], dsel, 0) \
-                .reshape(n, g, nblk_p, k, 3)
-            gv[:, bidx, :nblk_p, :k] = mod3(gv[:, bidx, :nblk_p, :k]
-                                            .to(torch.int16) + dsel) \
-                .to(torch.int8)
-            ok_pages = torch.gather(ok_c.reshape(n, C, PAGE), 1,
-                                    slot[..., None].expand(-1, -1, PAGE))
-            okb = torch.where(use_corr[..., None], ok_pages, ~dirty)
+                .view(n, g * npage, PAGE)
+            data, okb = rs.correct_pages(
+                gv[:, bidx, :nblk_p].reshape(n, g * npage, PAGE, rs.N, 3),
+                dirty, k, min(g * npage, max(6, g)), _rs_maps(T, k))
+            gv[:, bidx, :nblk_p, :k] = data.view(n, g, nblk_p, k, 3)
             ok = ok & okb.flatten(1).all(-1)
         return assemble_words(grid, T), ok
 
@@ -748,20 +709,17 @@ def full_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
     for grp in k_groups(geom, dlayout.hdr.beacon):
         k, g = grp.k, len(grp.bands)
         if grp.beacon:
-            recv = _beacon_blocks(grid, grp, T).permute(3, 2, 0, 1) \
-                .reshape(3, rs.N, n * grp.nblk)
-            d_c, ok_c = rs.correct_pm(recv.contiguous(), k, _rs_maps(T, k))
-            _beacon_put(grid, grp, T, d_c.reshape(3, k, n, grp.nblk)
-                        .permute(2, 3, 1, 0))
-            ok = ok & ok_c.reshape(n, -1).all(-1)
+            d_c, ok_c = rs.correct_pm(rs.blocks_pm(_beacon_blocks(grid, grp,
+                                                                   T)),
+                                      k, _rs_maps(T, k))
+            _beacon_put(grid, grp, T, rs.pm_blocks(d_c, (n, grp.nblk)))
+            ok = ok & ok_c.view(n, -1).all(-1)
             continue
         bidx = torch.as_tensor(grp.bands, device=body.device)
-        recv = gv[:, bidx, :nblk_p].permute(4, 3, 0, 1, 2) \
-            .reshape(3, rs.N, n * g * nblk_p)
-        d_c, ok_c = rs.correct_pm(recv.contiguous(), k, _rs_maps(T, k))
-        gv[:, bidx, :nblk_p, :k] = d_c.reshape(3, k, n, g, nblk_p) \
-            .permute(2, 3, 4, 1, 0)
-        ok = ok & ok_c.reshape(n, -1).all(-1)
+        d_c, ok_c = rs.correct_pm(rs.blocks_pm(gv[:, bidx, :nblk_p]), k,
+                                  _rs_maps(T, k))
+        gv[:, bidx, :nblk_p, :k] = rs.pm_blocks(d_c, (n, g, nblk_p))
+        ok = ok & ok_c.view(n, -1).all(-1)
     return assemble_words(grid, T), ok
 
 
@@ -817,7 +775,7 @@ def header_validator(T: dict, rs_mode: str, hdr_all_pages: bool = False):
                 maps=_rs_maps(T, 18))
             exp = T["hdr_exp"][:, :, None, :].expand(3, 2, n, 18) \
                 .reshape(3, 2 * n, 18)
-            match = (hdr_dig == exp).permute(1, 0, 2).flatten(1).all(-1)
+            match = (hdr_dig == exp).all(-1).all(0)
             return (ok_h & match).reshape(2, n).all(0)
     return validate
 

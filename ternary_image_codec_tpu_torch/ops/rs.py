@@ -254,18 +254,28 @@ def correct_pm(recv_pm: torch.Tensor, k: int, maps=None):
     with tracing.span("t3.k2"):
         if recv_pm.device.type == "cuda":
             from . import rs_cuda
-            tracing.count("t3.k2.launches", 1)
             return rs_cuda.rs_correct(recv_pm, k)
         if recv_pm.device.type == "cpu":
             return correct_pm_ref(recv_pm, k, maps)
     raise ValueError(f"correct_pm: unsupported device {recv_pm.device}")
 
 
+def blocks_pm(blocks: torch.Tensor) -> torch.Tensor:
+    """Codeword digits (..., 26, 3) -> K2's layout (3, 26, B), contiguous,
+    the blocks in the row-major order of the leading axes."""
+    return blocks.reshape(-1, N, 3).permute(2, 1, 0).contiguous()
+
+
+def pm_blocks(data_pm: torch.Tensor, lead) -> torch.Tensor:
+    """K2's data digits (3, k, B) -> (*lead, k, 3), ``blocks_pm``'s block
+    order (a view)."""
+    return data_pm.permute(2, 1, 0).reshape(*lead, data_pm.shape[1], 3)
+
+
 def decode_dig(recv_dig: torch.Tensor, k: int, maps=None):
     """Digit decode: (B, 26, 3) -> (data digits (B, k, 3), ok (B,))."""
-    data_pm, ok = correct_pm(recv_dig.permute(2, 1, 0).contiguous()
-                             .to(torch.int8), k, maps)
-    return data_pm.permute(2, 1, 0), ok
+    data_pm, ok = correct_pm(blocks_pm(recv_dig.to(torch.int8)), k, maps)
+    return pm_blocks(data_pm, ok.shape), ok
 
 
 def encode(data: torch.Tensor, k: int) -> torch.Tensor:
@@ -323,31 +333,47 @@ def pick_page(nblk: int, lo: int = 8, hi: int = 64, target: int = 24):
     return min(cands, key=lambda d: abs(d - target)) if cands else None
 
 
+def correct_pages(blocks: torch.Tensor, dirty: torch.Tensor, k: int, C: int,
+                  maps=None):
+    """The paged corrector: codeword digits (n, P, page, 26, 3) and their
+    block dirty flags (n, P, page) -> (data (n, P, page, k, 3), ok
+    (n, P, page)).  In each of the n rows the first C dirty pages
+    (``first_dirty_pages``) are corrected, all n * C of them in one
+    ``correct_pm`` call (one K2 launch on the card); a page among them
+    takes its corrected digits and ok flags, any other page keeps its data
+    with ok False on its dirty blocks (a dirty page past capacity fails
+    safe)."""
+    n, P, page = dirty.shape
+    pdirty = dirty.any(-1)                                  # (n, P)
+    psafe = first_dirty_pages(pdirty, C)                    # (n, C)
+    sel = torch.gather(blocks, 1, psafe[..., None, None, None].expand(
+        -1, -1, page, N, 3))                                # (n, C, page, .)
+    d_c, ok_c = correct_pm(blocks_pm(sel), k, maps)
+    slot, use_corr = slot_merge(pdirty, C)                  # (n, P)
+    count_dirty_sent(dirty, use_corr)
+    corr = torch.gather(pm_blocks(d_c, (n, C, page)), 1,
+                        slot[..., None, None, None].expand(-1, -1, page, k, 3))
+    data = torch.where(use_corr[..., None, None, None], corr,
+                       blocks[..., :k, :])
+    ok_pages = torch.gather(ok_c.view(n, C, page), 1,
+                            slot[..., None].expand(-1, -1, page))
+    return data, torch.where(use_corr[..., None], ok_pages, ~dirty)
+
+
 def decode_paged_pm_bk(recv_bk: torch.Tensor, k: int, page: int = 256,
                        max_dirty_pages: int | None = None, maps=None):
     """Page-compacted decode of block-minor digits (3, B, 26) -> ((3, B, k),
     ok (B,)).  Only the first C dirty pages (C = max_dirty_pages, default
-    max(8, npage // 8), at most npage) run the correction chain; blocks of
-    dirty pages beyond capacity come back uncorrected with ok=False."""
-    r = N - k
+    max(8, npage // 8), at most npage) run the correction chain
+    (``correct_pages``); blocks of dirty pages beyond capacity come back
+    uncorrected with ok=False."""
     B = recv_bk.shape[1]
     npage = -(-B // page)
     C = max_dirty_pages if max_dirty_pages is not None else max(8, npage // 8)
     C = min(C, npage)
-    rd = torch.nn.functional.pad(recv_bk, (0, 0, 0, npage * page - B))
-    S = syndromes_pm_bk(rd, k, maps).reshape(3 * r, npage * page)
-    dirty_blk = (S != 0).any(0)                              # (Bp,)
-    pdirty = dirty_blk.reshape(npage, page).any(1)
-    psafe = first_dirty_pages(pdirty, C)
-    g_rd = rd.reshape(3, npage, page, N)[:, psafe] \
-        .reshape(3, C * page, N).transpose(1, 2).contiguous()  # (3, 26, Cp)
-    d_g, ok_g = correct_pm(g_rd, k, maps)                    # (3, k, Cp)
-    slot, use_corr = slot_merge(pdirty, C)
-    count_dirty_sent(dirty_blk.reshape(npage, page), use_corr)
-    corr_pages = d_g.reshape(3, k, C, page).permute(0, 2, 3, 1)[:, slot]
-    orig = rd[:, :, :k].reshape(3, npage, page, k)
-    data = torch.where(use_corr[None, :, None, None], corr_pages, orig)
-    ok_pages = ok_g.reshape(C, page)[slot]
-    ok = torch.where(use_corr[:, None], ok_pages,
-                     ~dirty_blk.reshape(npage, page))
-    return data.reshape(3, npage * page, k)[:, :B], ok.reshape(-1)[:B]
+    rd = recv_bk.new_zeros((npage * page, N, 3))            # zero pad blocks
+    rd[:B] = recv_bk.permute(1, 2, 0)
+    S = syndromes_pm(rd.permute(2, 1, 0), k, maps)          # (3, r, Bp)
+    dirty = (S != 0).flatten(0, 1).any(0).view(1, npage, page)
+    data, ok = correct_pages(rd.view(1, npage, page, N, 3), dirty, k, C, maps)
+    return data.view(-1, k, 3)[:B].permute(2, 0, 1), ok.view(-1)[:B]

@@ -24,9 +24,6 @@ import torch
 
 from ..runtime import build
 
-# kernel launches made by rs_correct in this process
-launches = 0
-
 _KS = (18, 20, 22, 24)
 
 
@@ -43,7 +40,6 @@ def _lib():
 def rs_correct(recv_pm: torch.Tensor, k: int):
     """K2: (3, 26, B) int8 digits on a CUDA device -> (data (3, k, B)
     int8, ok (B,) bool).  Raises on anything else."""
-    global launches
     if recv_pm.device.type != "cuda":
         raise ValueError(f"rs_correct needs a CUDA tensor, got {recv_pm.device}")
     if recv_pm.dtype != torch.int8:
@@ -59,11 +55,7 @@ def rs_correct(recv_pm: torch.Tensor, k: int):
     ok = torch.empty((B,), dtype=torch.bool, device=recv_pm.device)
     if B == 0:
         return out, ok
-    lib = _lib()
-    with torch.cuda.device(recv_pm.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.t3_rs_correct(recv_pm.data_ptr(), out.data_ptr(),
-                                ok.data_ptr(), B, k, stream)
-    build.check(lib, err, "rs_correct launch")
-    launches += 1
+    build.launch(_lib(), "t3_rs_correct", recv_pm.device, recv_pm.data_ptr(),
+                 out.data_ptr(), ok.data_ptr(), B, k,
+                 counter="t3.k2.launches")
     return out, ok

@@ -8,12 +8,14 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 
 into ``build/t3_kernels/`` at the repository root; the file name carries a
 hash of the sources, so an edited kernel is rebuilt.  Every C entry point
-takes its pointers and the stream as ``void*`` and returns
-``cudaGetLastError()`` after the launch; ``check`` raises on a nonzero code.
-A failed build raises.
+takes its pointers and, last, the stream as ``void*`` and returns
+``cudaGetLastError()`` after the launch.  ``launch`` is the one place a
+kernel runs: it passes the device's current stream, raises on a nonzero
+code and counts the launch in ``launches``.  A failed build raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -22,10 +24,18 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
+from . import tracing
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "t3_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# kernel launches in this process by C entry point, its ``t3_`` prefix
+# dropped; read as the difference of two snapshots
+launches = collections.Counter()
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
@@ -59,13 +69,29 @@ def load(name: str) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed building {name}:\n{proc.stderr}")
         os.replace(tmp, so)
-    return ctypes.CDLL(str(so))
+    lib = ctypes.CDLL(str(so))
+    lib.t3_error_string.restype = ctypes.c_char_p
+    lib.t3_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise when a C entry point returned a CUDA error code."""
+def call(lib: ctypes.CDLL, entry: str, device, *args) -> None:
+    """The C entry point ``entry`` of ``lib`` with ``device`` current;
+    raises when it returns a nonzero CUDA error code."""
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args)
     if err != 0:
-        lib.t3_error_string.restype = ctypes.c_char_p
-        lib.t3_error_string.argtypes = [ctypes.c_int]
         msg = lib.t3_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, entry: str, device, *args,
+           counter: str | None = None) -> None:
+    """One kernel launch: ``call`` with the device's current stream after
+    ``args``, counted in ``launches`` and, when given, in the tracing
+    counter ``counter``."""
+    call(lib, entry, device, *args,
+         torch.cuda.current_stream(device).cuda_stream)
+    launches[entry.removeprefix("t3_")] += 1
+    if counter is not None:
+        tracing.count(counter, 1)

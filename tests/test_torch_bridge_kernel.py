@@ -39,6 +39,7 @@ from ternary_image_codec_tpu_torch.codec import codec_for
 from ternary_image_codec_tpu_torch.ops import bridge_cuda as B
 from ternary_image_codec_tpu_torch.ops import quant as Q
 from ternary_image_codec_tpu_torch.ops import wordcodec as W
+from ternary_image_codec_tpu_torch.runtime import build
 
 SRC = (Path(B.__file__).resolve().parents[1] / "csrc" / "bridge.cu") \
     .read_text()
@@ -157,7 +158,7 @@ class Recorder:
 def test_wrapper_routes_cpu_to_twin_and_checks_its_input(monkeypatch):
     lib = Recorder()
     monkeypatch.setattr(B, "_lib", lambda: lib)
-    before = dict(B.launches)
+    before = build.launches.copy()
     rgb = torch.randint(0, 256, (3, 5, 3), dtype=torch.uint8)
     out = torch.empty((8, 9), dtype=torch.int8)
     assert torch.equal(W.ingest9(rgb, out), W.ingest9_ref(
@@ -182,7 +183,7 @@ def test_wrapper_routes_cpu_to_twin_and_checks_its_input(monkeypatch):
         B.egress(planes[:8])
     with pytest.raises(ValueError, match="CUDA"):
         B.egress(planes)
-    assert lib.calls == [] and B.launches == before
+    assert lib.calls == [] and build.launches == before
 
 
 def test_fixup_table_is_quants():
@@ -276,11 +277,11 @@ def card():
 
 @pytest.mark.cuda
 def test_kernels_equal_twins_on_the_card(card):
-    before = dict(B.launches)
+    before = build.launches.copy()
     names = cs.hold_bridges(torch, card, W.ingest9, W.egress9, full=True)
     for kind in ("ingest", "egress"):
         n = sum(name.startswith(kind) for name in names)
-        assert B.launches[kind] - before[kind] == n
+        assert (build.launches - before)[f"bridge_{kind}"] == n
 
 
 @pytest.mark.cuda
@@ -288,11 +289,12 @@ def test_rgb_entry_launches_each_once(card):
     cfg = c.EncoderConfig(profile=c.ProfileID.P2_RS26_22,
                           uep=c.uep_luma_priority(), superframe_words=256)
     rgb = torch.randint(0, 256, (23, 45, 3), dtype=torch.uint8)
-    before = dict(B.launches)
+    before = build.launches.copy()
     codec = codec_for(cfg, card)
     out, ok = codec.decode_rgb(codec.encode_rgb(rgb.to(card)),
                                size=(23, 45))
-    assert B.launches == {k: v + 1 for k, v in before.items()}
+    ran = build.launches - before
+    assert (ran["bridge_ingest"], ran["bridge_egress"]) == (1, 1)
     cpu = codec_for(cfg, "cpu")
     want, _ = cpu.decode_rgb(cpu.encode_rgb(rgb), size=(23, 45))
     assert bool(ok) and torch.equal(out.cpu(), want)

@@ -20,8 +20,9 @@ from ternary_image_codec_tpu_torch.bench import (full_mode_bench, headline,
 from ternary_image_codec_tpu_torch.cli import demo_write_video, main_bare
 from ternary_image_codec_tpu_torch.codec import codec_for, resolve_device
 from ternary_image_codec_tpu_torch.io import formats, image, serve, video
-from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline, proto, rs_cuda
+from ternary_image_codec_tpu_torch.ops import pipeline, proto
 from ternary_image_codec_tpu_torch.parallel import dryrun, launch
+from ternary_image_codec_tpu_torch.runtime import build
 from ternary_image_codec_tpu_torch.parallel import mesh as pmesh
 
 CFG = port.EncoderConfig(profile=port.ProfileID.P2_RS26_22,
@@ -155,19 +156,19 @@ def test_every_entry_point_listed(tmp_path):
 def test_default_device_is_the_card(entry, tmp_path):
     call = _calls(tmp_path)[entry]
     if torch.cuda.is_available():
-        before = rs_cuda.launches
+        before = build.launches["rs_correct"]
         out = call()
         first = out[0] if isinstance(out, tuple) else out     # codec or tensor
         if entry == "decode_header_from_words":
             # a header is host data: K2 decoded its blocks on the card
-            assert out[1] and rs_cuda.launches > before
+            assert out[1] and build.launches["rs_correct"] > before
         elif entry in ("selftest_rs_unit", "selftest_api_roundtrip"):
-            assert out and rs_cuda.launches > before
+            assert out and build.launches["rs_correct"] > before
         elif entry.startswith("bench."):
             # a tool's exit code: its checks passed on the card
             assert out == 0
             if entry != "bench.serve_bench":
-                assert rs_cuda.launches > before
+                assert build.launches["rs_correct"] > before
         elif entry == "FFVideoWriter":
             assert out.device.type == "cuda"
         elif entry == "proto_aniso_rc_encode":
@@ -242,8 +243,9 @@ def test_beacon_codec_on_the_card():
     raw = _raw()
     words = port.encode_stream_superframes(raw, cfg)
     words[1, 30, 4] = (words[1, 30, 4] + 1) % 27       # a beacon payload cell
-    k1, k2 = dec_cuda.launches, rs_cuda.launches
+    before = build.launches.copy()
     out, ok = port.decode_stream_superframes(words, cfg, len(raw),
                                              strategy="paged")
     assert bool(ok) and np.array_equal(out.cpu().numpy(), raw)
-    assert dec_cuda.launches == k1 and rs_cuda.launches > k2
+    ran = build.launches - before
+    assert ran["check_decode"] == 0 and ran["rs_correct"] > 0

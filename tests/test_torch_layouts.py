@@ -435,31 +435,40 @@ def test_beacon_capacity_is_per_superframe():
     4 a batch: a superframe with 5 dirty pages of its beacon band (91
     codewords, 6 pages) is flagged and keeps the fifth page as it is, one
     with 4 in the same micro-batch repairs; each as the reference's per
-    superframe decode."""
+    superframe decode.  A uniform k-group holds C = min(g*npage, max(6, g))
+    pages a superframe: in band 1's group (k=22, 5 bands of 7 pages) 7
+    dirty pages are flagged and keep the seventh, band 2's first, as it
+    is; 6 repair."""
     jcfg = jconfig.EncoderConfig(
         profile=jconfig.ProfileID.P2_RS26_22, uep=jconfig.uep_luma_priority(),
         beacon=jconfig.SparseBeaconCfg(13, 4, True), superframe_words=2048)
     geom, b0, p, _uni = _geometry(jcfg)
-    assert geom.blocks[b0] > 5 * 16
-    raw = raw_words(2 * 2048, seed=13)
+    assert geom.blocks[b0] > 5 * 16 and geom.blocks[1] > 5 * 16
+    raw = raw_words(4 * 2048, seed=13)
     words = np.array(jpipe.encode_stream_superframes(jnp.asarray(raw), jcfg,
                                                      sf_batch=SFB))
     for sf, pages in ((0, 5), (1, 4)):
         for pg in range(pages):
             j = pg * 16 * 26 + 3                # payload cell of the page
             _hit(words, sf, j + j // (p - 1) + 1, b0, 1 + pg)
+    for sf, pages in ((2, [(1, pg) for pg in range(6)] + [(2, 0)]),
+                      (3, [(1, pg) for pg in range(6)])):
+        for band, pg in pages:
+            _hit(words, sf, pg * 16 * 26 + 3, band, 1 + pg)
     words_T = np.ascontiguousarray(words.transpose(0, 2, 1))
     _l, _d, _e, dec = jpipe._stream_fns(jcfg, SFB, rs_mode="paged",
                                         ok_per_sf=True, hdr_all_pages=True)
     want, want_ok = dec(jnp.asarray(words_T))
     got, got_ok = SuperframeCodec(port_cfg(jcfg), device=CPU).paged(
         torch.as_tensor(words_T), SFB)
-    assert np.asarray(want_ok).tolist() == [False, True]
-    assert got_ok.tolist() == [False, True]
+    assert np.asarray(want_ok).tolist() == [False, True, False, True]
+    assert got_ok.tolist() == [False, True, False, True]
     assert np.array_equal(got.numpy(), np.asarray(want))
     n_out = got.shape[-1]
-    assert np.array_equal(got.numpy()[1, :, :2048].T, raw[2048:])
-    assert not np.array_equal(got.numpy()[0, :, :2048].T, raw[:2048])
+    for sf in range(4):
+        part = got.numpy()[sf, :, :2048].T
+        assert np.array_equal(part, raw[sf * 2048:(sf + 1) * 2048]) \
+            == bool(sf % 2)
     assert n_out >= 2048
 
 
