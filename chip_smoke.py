@@ -97,12 +97,15 @@ Phases, one output line each:
    and P5 26x26 without one on 64 superframes, fused clean and damaged;
    the UEP layout (0,1,2,2,1,0,1,1,2), whose k-groups are no residue
    classes, on one 8K frame through check and a damaged fused decode.  K1
-   must not launch on the beacon and P5 legs (their check is the plain
-   grid check) and must launch on the UEP leg; K2 must launch on every
-   leg; every K1 and K2 input of the phase is held bit-equal to the
-   twin; K1 timed on the UEP frame against its bound; ms per frame of
-   each step and the peak device memory of the flagship's check and full
-   decodes.
+   must launch on every leg (on the beacon and P5 legs its beacon and P5
+   specialisations, the grid route's check) and K2 on every leg; every K1
+   and K2 input of the phase is held bit-equal to the twin (the plain grid
+   check on the grid route); K1's grid route also held on the flagship
+   frame clean and damaged and on ``GRID_K1_CASES`` (small layouts with
+   partial P5 tiles, beacons in bands 0, 4 and 8, one unstaged) and timed
+   on the flagship frame against its bound and the plain grid check; K1
+   timed on the UEP frame against its bound; ms per frame of each step
+   and the peak device memory of the flagship's check and full decodes.
 9. the transform prototypes and the CLI tools (``phase_protos``): whether
    PIL and ffmpeg are on the host (one JSON line); Haar ternary tiles, their
    reconstruction, the spectral sketch, AnisoRC encode and reconstruction
@@ -161,7 +164,7 @@ Phases, one output line each:
    the step's peak device memory; the (576868, 9) int8 output equal to the
    CPU step's on the same input and to a second call; the decode back on
    the card (``decode_profile_to_raw``: K2 for the header chain and the
-   paged repair, the grid check) exact clean and under a damage pattern
+   paged repair, which runs no check decode) exact clean and under a damage pattern
    fixed by its seed (at most t errors in codewords of three bands, the
    beacon band among them, one header cell, beacon cells), and an overcap
    copy flagged; K3 once in the step, K2 and never K1 in each decode,
@@ -463,10 +466,11 @@ def k1_bound(layout, n_sf):
 
 
 def _k1_equal(torch, body, codec, what):
-    """K1 against its plain twin on one input; returns (max_abs_err, ok)."""
+    """K1 against its plain twin (``k1_twin``) on one input; returns
+    (max_abs_err, ok)."""
     from ternary_image_codec_tpu_torch.ops import dec_cuda
     got, got_ok = dec_cuda.check_decode(body, codec.dlayout)
-    want, want_ok = dec_cuda.check_decode_ref(body, codec.tables())
+    want, want_ok = k1_twin(body, codec.dlayout, codec.tables())
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"K1 {what}: outputs differ from plain")
     require(torch.equal(got_ok, want_ok), f"K1 {what}: ok flags differ")
@@ -948,6 +952,16 @@ def kept_inputs(k1, k2):
         dec_cuda.check_decode, rs_cuda.rs_correct = check_decode, rs_correct
 
 
+def k1_twin(body, layout, T):
+    """K1's plain twin for ``layout``: ``check_decode_ref`` on K1's own
+    route, ``pipeline.grid_check`` on the grid route's (its beacon and P5
+    specialisations)."""
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline
+    if dec_cuda.supported(layout):
+        return dec_cuda.check_decode_ref(body, T)
+    return pipeline.grid_check(body, layout, T)
+
+
 def hold_kept(torch, dev, k1_in, k2_in, what):
     """Every kept K1 and K2 input run again through the kernel and its
     plain twin: bit-equal outputs and flags."""
@@ -956,7 +970,7 @@ def hold_kept(torch, dev, k1_in, k2_in, what):
         _dl, T = pipeline._body_decoder_tables(
             pipeline.header_config(layout.hdr), layout.H, dev)
         got, got_ok = dec_cuda.check_decode(body, layout)
-        want, want_ok = dec_cuda.check_decode_ref(body, T)
+        want, want_ok = k1_twin(body, layout, T)
         require(torch.equal(got, want) and torch.equal(got_ok, want_ok),
                 f"K1 on {what}'s n_sf={body.shape[0]} input: differs from "
                 "plain")
@@ -1496,6 +1510,81 @@ def beacon_page_damage(torch, words_T, sf, pages, period, band):
         _add_sym(torch, words_T, (sf, band, 6 + row), 1 + pg % 26)
 
 
+# the grid route's layouts besides the flagship frame on which K1's beacon
+# and P5 specialisations are held to the plain grid check (the CPU model
+# test's cases, ``tests/test_torch_check_decode.py``, and one too large
+# for the shared-memory stage): name -> (profile, superframe words, UEP
+# band profiles (None: luma priority), scrambler seed, P5 tile, beacon
+# (period, band))
+GRID_K1_CASES = {
+    "p5_26x26_b13/512": ("P5_RS26_22_2D", 512, None, (1, 1, 1), (26, 26), (13, 4)),
+    "p5_26x26_b13/1024": ("P5_RS26_22_2D", 1024, None, (2, 1, 0), (26, 26), (13, 4)),
+    "p5_8x4/208": ("P5_RS26_22_2D", 208, None, (0, 2, 1), (8, 4), None),
+    "p2_b13/256": ("P2_RS26_22", 256, None, (2, 0, 1), None, (13, 4)),
+    "p5_6x5_b7_band0/170": ("P5_RS26_22_2D", 170, NONRESIDUE_UEP, (2, 2, 0),
+                            (6, 5), (7, 0)),
+    "p2_b2_band8/184": ("P2_RS26_22", 184, None, (2, 1, 1), None, (2, 8)),
+    "p5_26x26_b13/16000": ("P5_RS26_22_2D", 16000, None, (2, 1, 0), (26, 26),
+                           (13, 4)),
+}
+GRID_K1_UNSTAGED = "p5_26x26_b13/16000"
+GRID_K1_SF = 300       # more superframes than the kernel's persistent grid
+
+
+def hold_grid_k1(torch, dev):
+    """K1's beacon and P5 specialisations against the plain grid check on
+    ``GRID_K1_CASES``: GRID_K1_SF encoded superframes, every 8th damaged
+    in a payload cell of the beacon band (else of band 0) and every 8th + 3
+    in beacon cells only (which must not flag), as the encoder's strided
+    view and contiguous, then random bytes over all 256 values.  Returns
+    the names held."""
+    from ternary_image_codec_tpu_torch import SuperframeCodec, config as C
+    from ternary_image_codec_tpu_torch.ops import dec_cuda, pipeline
+    held = []
+    for name, (prof, sfw, uep, seed, tile, beacon) in GRID_K1_CASES.items():
+        kw = {}
+        if tile:
+            kw["tile"] = C.Tile2D(*tile)
+        if beacon:
+            kw["beacon"] = C.SparseBeaconCfg(*beacon, True)
+        codec = SuperframeCodec(C.EncoderConfig(
+            profile=C.ProfileID[prof], superframe_words=sfw,
+            uep=C.UEPLayout(uep) if uep else C.uep_luma_priority(),
+            seed=C.ScramblerSeed(*seed), **kw), device=dev)
+        dl = codec.dlayout
+        require(pipeline.check_route(dl) == "grid" and dec_cuda.covers(dl),
+                f"K1 grid route {name}: the layout is not covered")
+        g = torch.Generator(device=dev).manual_seed(sfw)
+        words = codec.encode(torch.randint(
+            0, 27, (GRID_K1_SF, sfw, 9), generator=g, device=dev,
+            dtype=torch.int8), sf_batch=SF_BATCH)
+        band = beacon[1] if beacon else 0
+        row = beacon_row(2 * 26 + 5, beacon[0]) if beacon else 2 * 26 + 5
+        hit = torch.arange(0, GRID_K1_SF, 8, device=dev)
+        words[hit, band, 6 + row] = (words[hit, band, 6 + row] + 1) % 27
+        if beacon:
+            cells = torch.arange(3, GRID_K1_SF, 8, device=dev)
+            for r in (0, beacon[0], 5 * beacon[0]):
+                words[cells, band, 6 + r] = (words[cells, band, 6 + r] + 2) % 27
+        body = words[:, :, 6:]
+        staged = dec_cuda.plan(body, dl)["staged"]
+        require(staged == (name != GRID_K1_UNSTAGED),
+                f"K1 grid route {name}: staged is {staged}")
+        i = torch.arange(GRID_K1_SF, device=dev)
+        for what, b in (("view", body), ("contiguous", body.contiguous())):
+            _err, ok = _k1_equal(torch, b, codec, f"grid route {name} {what}")
+            require(torch.equal(ok, i % 8 != 0),
+                    f"K1 grid route {name} {what}: wrong superframes flagged")
+        noise = torch.randint(-128, 128, (GRID_K1_SF, 9, 6 + dl.H),
+                              generator=g, device=dev, dtype=torch.int8)
+        noise.view(-1)[:256] = (torch.arange(256, device=dev) - 128) \
+            .to(torch.int8)
+        _k1_equal(torch, noise[:, :, 6:], codec, f"grid route {name} noise")
+        held.append(f"{name}{'' if staged else ' unstaged'}")
+        del words, body, noise
+    return held
+
+
 def phase_layouts(torch, dev):
     """The configs off the main path at full width through the public
     entry points: the flagship layout on one 8K frame (encode; check, auto
@@ -1620,7 +1709,28 @@ def phase_layouts(torch, dev):
     T = codec.tables()
     times["flagship warm"]["grid check (device, CUDA events)"] = cuda_ms(
         torch, lambda: pipeline.grid_check(body, codec.dlayout, T), 5)
+    # K1's grid route on the same frame, clean and damaged, as the decode
+    # hands it over (contiguous planes, the body a strided view) and
+    # contiguous; then timed against its bound and the plain grid check
+    dl = codec.dlayout
+    require(dec_cuda.covers(dl), "flagship layout: K1's grid route does "
+            "not cover it")
+    held = []
+    for what, w in (("clean", words), ("damaged", dirty)):
+        b = w.transpose(1, 2).contiguous()[:, :, 6:]
+        for how, x in (("view", b), ("contiguous", b.contiguous())):
+            _k1_equal(torch, x, codec, f"flagship {what} {how}")
+            held.append(f"flagship 8K {what} {how}")
+    body = words.transpose(1, 2).contiguous()[:, :, 6:]
+    run = lambda: dec_cuda.check_decode(body, dl)
+    bound, bound_by, _moved = k1_bound(dl, body.shape[0])
+    grid_k1 = {"n_sf": body.shape[0], "plan": dec_cuda.plan(body, dl),
+               "ms": cuda_ms(torch, run, 20),
+               "device_ms": graph_ms(torch, run, 20), "bound_ms": bound,
+               "bound_by": bound_by, "plain_grid_check_ms":
+               times["flagship warm"]["grid check (device, CUDA events)"]}
     del words, dirty, body
+    grid_k1["held"] = held + hold_grid_k1(torch, dev)
 
     # --- P2 with the beacon and P5 without one, 64 superframes ------------
     for name in ("p2_beacon", "p5"):
@@ -1654,24 +1764,22 @@ def phase_layouts(torch, dev):
     del w
 
     for name, n in legs.items():
-        if name == "uep_nonresidue":
-            require(n["check_decode"] > 0, f"{name}: K1 never launched")
-        else:
-            require(n["check_decode"] == 0,
-                    f"{name}: K1 launched {n['check_decode']} times on a "
-                    "layout it does not cover")
+        require(n["check_decode"] > 0, f"{name}: K1 never launched")
         require(n["rs_correct"] > 0, f"{name}: K2 never launched")
-    require(len(k1_in) == legs["uep_nonresidue"]["check_decode"]
+    require(len(k1_in) == sum(n["check_decode"] for n in legs.values())
             and len(k2_in) == sum(n["rs_correct"] for n in legs.values()),
             f"launches {legs} but {len(k1_in)} K1 and {len(k2_in)} K2 "
             "inputs kept")
 
     # every kernel input of the phase against the kernel's twin
     shapes = {"check_decode": {}, "rs_correct": {}}
+    codecs = {name: codec_for(c, dev) for name, c in cfgs.items()}
     for b, layout in k1_in:
-        require(layout is nr.dlayout, "K1 ran on another layout")
-        _k1_equal(torch, b, nr, f"non-residue n_sf={b.shape[0]}")
-        key = f"n_sf={b.shape[0]}"
+        name = next((k for k, cod in codecs.items() if cod.dlayout is layout),
+                    None)
+        require(name is not None, "K1 ran on another layout")
+        _k1_equal(torch, b, codecs[name], f"{name} n_sf={b.shape[0]}")
+        key = f"{name} n_sf={b.shape[0]}"
         shapes["check_decode"][key] = shapes["check_decode"].get(key, 0) + 1
     for recv, k in k2_in:
         got, got_ok = rs_cuda.rs_correct(recv, k)
@@ -1702,11 +1810,14 @@ def phase_layouts(torch, dev):
           f"26x26 at {SMALL_SF} superframes: fused exact clean and damaged.  "
           f"UEP {NONRESIDUE_UEP}: check and fused exact, K1 bit-equal to "
           f"plain.  Launches by leg {legs}; every kernel input bit-equal to "
-          f"plain (inputs by shape: {shapes}); peak device memory above "
-          f"the frame's words (bytes): {peaks}", flush=True)
+          f"plain (inputs by shape: {shapes}); K1's grid route bit-equal to "
+          f"the plain grid check on {grid_k1['held']}; peak device memory "
+          f"above the frame's words (bytes): {peaks}", flush=True)
+    del grid_k1["held"]
+    k1["grid_route"] = grid_k1
     print(f"[8 layout times] ms/frame (first pass, then warm): "
-          f"{json.dumps(times)}; K1 on the non-residue frame: {k1}",
-          flush=True)
+          f"{json.dumps(times)}; K1 on the non-residue frame and on the "
+          f"flagship frame (grid route): {k1}", flush=True)
     return legs, k1, times
 
 
@@ -2637,8 +2748,8 @@ def phase_entry(torch, dev, smi_line):
     call; ``decode_profile_to_raw`` on the card of it clean, under
     ``entry_damage`` (exact, ok True) and of the overcap copy (ok False).
     The launch counters are set to 0 before each leg and read after: K3
-    once in the step, K2 and never K1 in each decode (a beacon layout's
-    check is the plain grid check); every K2 input of the decodes is held
+    once in the step, K2 and never K1 in each decode (the profile decode is
+    the paged corrector, which runs no check); every K2 input of the decodes is held
     bit-equal to the twin.  Returns (launches by leg, times)."""
     from ternary_image_codec_tpu_torch import entry as E
     from ternary_image_codec_tpu_torch.ops import pipeline

@@ -98,7 +98,7 @@ class SuperframeCodec(nn.Module):
         strategies check, paged, full, none.  Headers are byte-compared
         under check and go through the RS(26,18) paged chain, every page
         covered, otherwise.  On the card check, none (one K1 launch, or
-        the plain grid check of a layout K1 does not cover) and full (one
+        the plain grid check of a layout no K1 specialisation covers) and full (one
         K2 launch per group of bands) take every superframe at once;
         everything else goes ``sf_batch`` superframes at a time."""
         T = self.tables()

@@ -10,6 +10,27 @@
 // beacon, no P5, the same nblk in every band, H == 26 * nblk, every k even
 // (and 16 <= k <= 24, which every profile's k is).
 //
+// The same source covers the layouts of the grid route (`covers()`): a
+// sparse beacon and/or P5's 2D interleave, every band but the beacon's
+// with H == 26 * nblk.  Its contract there is `pipeline.grid_check`.  Two
+// template flags specialise the kernel; with both off it is the P2 kernel.
+// * kBeacon: the beacon band's codewords run down its payload rows:
+//   coefficient h (codeword h / 26) sits on body row h + h / (p - 1) + 1,
+//   rows r % p == 0 holding the beacon symbol.  Once the band's part has
+//   landed, its 26 * nblk_b codeword cells are compacted into a strip (the
+//   beacon cells and the payload rows past the last whole codeword are
+//   never read), each byte re-scrambled from its true row's column parity
+//   to the strip position's, so the check pass reads the strip as a band
+//   of nblk_b blocks with the descramble table as it is.
+// * kP5: the data symbol at band-stream index s goes to stream position
+//   perm(s) (ops/interleave.py), s < L_out only.  The snake order is an
+//   involution tile by tile: in a w x h tile at t, t + r*w + c maps to
+//   t + r*w + (r odd ? w-1-c : c); in the last, partial tile of
+//   q*w + rem symbols row q reverses over its rem symbols.  The divisions
+//   by the tile area, the width and p - 1 are multiplications by
+//   ceil(2^31 / d) (exact while n * d < 2^31, which the gate checks).
+// The word-major gather reads the stream buffer as it does for P2.
+//
 // Output symbol (b, w) holds trits 3b..3b+2 of RAW word w; stream trit
 // T = 26w + t (t < 26) is digit T % 3 of stream symbol i = T / 3.  Data
 // symbol c < k of band b's codeword blk (body column blk * 26 + c) is
@@ -75,17 +96,38 @@ constexpr int SPLIT = 4;               // body rows [0, 4) and [4, 9)
 //   [0, LUT_WORDS)            lut[(parity * 9 + band) * 256 + byte]
 //   [BFRAG_OFF, +768)         B fragments, [lane][nt][kt][reg]
 //   [BAND_OFF, +9)            k of each band (16 <= k <= 24)
+//   [FIX_OFF, +128)           kBeacon: fix[parity][byte] as bytes, the
+//                             beacon band's byte at a row of the other
+//                             parity re-scrambled to this parity
 constexpr int LUT_WORDS = 2 * BANDS * 256;
 constexpr int BFRAG_OFF = LUT_WORDS;
 constexpr int BAND_OFF = BFRAG_OFF + 32 * 24;
+constexpr int FIX_OFF = BAND_OFF + BANDS;
+constexpr int FIX_BYTES = 2 * 256;
 // dynamic shared memory: the lookup table, the per-band k, the two
 // mbarriers and the dirty flag, then the stream buffer and the two body
-// regions (each 128-aligned)
+// regions (each 128-aligned); kBeacon adds the fix table and (staged) the
+// beacon band's strip after them
 constexpr int SM_BAND = LUT_WORDS * 4;
 constexpr int SM_BAR = SM_BAND + 64;
 constexpr int SM_FLAG = SM_BAR + 16;
 constexpr int SM_STREAM = SM_BAND + 128;
 constexpr unsigned CHUNK = 32768;      // bytes per bulk copy instruction
+
+// The grid route's layout, as the wrapper passes it (11 uint32 words, in
+// this order; ops/dec_cuda.py `grid_args`).  A magic m of divisor d is
+// ceil(2^31 / d): n / d = umulhi(2n, m).
+struct Grid {
+  int beacon_band;                     // -1: no beacon
+  int beacon_blocks;                   // its whole codewords
+  unsigned beacon_magic;               // of p - 1
+  int stream_len;                      // L_out; 0: no P5
+  int tile_area;
+  unsigned area_magic;
+  int tile_w;
+  unsigned w_magic;
+  int last_tile, last_rows, last_rem;  // the partial tile: start, rows, rest
+};
 
 struct Args {
   const int8_t* body;
@@ -97,7 +139,13 @@ struct Args {
   int8_t* out;
   bool* ok;
   uint8_t* scratch;                    // unstaged: a stream buffer per block
+  Grid grid;                           // kBeacon, kP5
+  int strip_bytes;                     // kBeacon: the beacon band's strip
 };
+
+__device__ __forceinline__ int magic_div(int n, unsigned m) {
+  return (int)__umulhi((unsigned)n << 1, m);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -217,8 +265,32 @@ __device__ __forceinline__ uint32_t tiles_worst(const uint32_t (&a)[4][4],
   return worst;
 }
 
+// kP5: the stream position of band-stream index s < L_out, perm(s).
+__device__ __forceinline__ int snake(const Grid& v, int s) {
+  const int t = magic_div(s, v.area_magic) * v.tile_area;
+  const int u = s - t;
+  const int r = magic_div(u, v.w_magic);
+  const int c = u - r * v.tile_w;
+  const int w = t == v.last_tile && r == v.last_rows ? v.last_rem : v.tile_w;
+  return r & 1 ? s + w - 1 - 2 * c : s;
+}
+
+// kBeacon: the beacon band's codeword cells, read down its payload rows
+// from `row`, into the strip; a byte whose row parity differs from its
+// strip position's is re-scrambled by the fix table.
+__device__ __forceinline__ void beacon_strip(const uint8_t* row, uint8_t* strip,
+                                             const Grid& v, const uint8_t* fix) {
+  const int cells = v.beacon_blocks * N;
+  for (int h = threadIdx.x; h < cells; h += THREADS) {
+    const int r = h + magic_div(h, v.beacon_magic) + 1;
+    const uint8_t x = row[r];
+    strip[h] = (r ^ h) & 1 ? fix[(h & 1) << 8 | x] : x;
+  }
+}
+
 // Check pass over bands [bd0, bd1), whose rows start at `rows` (band bd at
-// rows + (bd - bd0) * row_stride).  A step is 16 codewords of one band,
+// rows + (bd - bd0) * row_stride; kBeacon: the beacon band's at `strip`,
+// with its own block count).  A step is 16 codewords of one band,
 // blocks 16*p .. 16*p + 15, the M rows of the product: thread (g = lane / 4,
 // q = lane % 4) loads A for blocks 16*p + 2g (row g) and 16*p + 2g + 1
 // (row g + 8), symbols 8kt + q (reg 0 / 1) and 8kt + 4 + q (reg 2 / 3), and
@@ -228,32 +300,42 @@ __device__ __forceinline__ uint32_t tiles_worst(const uint32_t (&a)[4][4],
 // band-major, warp w taking w, w + WARPS, ...; all loads of a step come
 // before its stores (the stream buffer and the stage are both shared
 // memory, and a store between two loads would order them).
+template <bool kBeacon, bool kP5>
 __device__ __forceinline__ uint32_t check_pass(const uint8_t* rows, int bd0,
                                                int bd1, int row_stride,
                                                int nblk, const uint32_t* lut,
                                                const int* band_k,
                                                const uint32_t (&B)[3][4][2],
-                                               uint8_t* stream) {
+                                               uint8_t* stream, const Grid& v,
+                                               const uint8_t* strip) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const int npair = (nblk + 15) / 16;
+  const int bpair = kBeacon ? (v.beacon_blocks + 15) / 16 : 0;
   // every symbol index this thread loads has the parity of q; slot (3, 0)
   // reads symbol 24 + q, or 25 for q >= 2 (a zero column then)
   const uint32_t lutq = smem_u32(lut + (q & 1) * BANDS * 256);
   const int i24 = 24 + q < N ? 24 + q : N - 1;
   uint32_t worst = 0;
   for (int bd = bd0, p = threadIdx.x >> 5;; p += WARPS) {
-    while (p >= npair && bd < bd1) p -= npair, ++bd;     // warp-uniform
+    if constexpr (kBeacon) {                             // warp-uniform
+      for (int n; bd < bd1 && p >= (n = bd == v.beacon_band ? bpair : npair);)
+        p -= n, ++bd;
+    } else {
+      while (p >= npair && bd < bd1) p -= npair, ++bd;   // warp-uniform
+    }
     if (bd >= bd1) break;
+    const bool bc = kBeacon && bd == v.beacon_band;
+    const int nb = bc ? v.beacon_blocks : nblk;
     const int k = band_k[bd], r3 = 3 * (N - k);
     const uint32_t lb = lutq + bd * 1024;               // shared address
     // rows g and g + 8 take blocks 16p + 2g and 16p + 2g + 1: 52 bytes
     // apart across g, so a byte load of eight rows meets eight banks
-    const int blk[2] = {min(16 * p + 2 * g, nblk - 1), min(16 * p + 2 * g + 1, nblk - 1)};
+    const int blk[2] = {min(16 * p + 2 * g, nb - 1), min(16 * p + 2 * g + 1, nb - 1)};
     uint32_t a[4][4];
 #pragma unroll
     for (int cw = 0; cw < 2; ++cw) {
-      const uint8_t* row = rows + (bd - bd0) * row_stride + blk[cw] * N;
+      const uint8_t* row = (bc ? strip : rows + (bd - bd0) * row_stride) + blk[cw] * N;
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         const int i0 = kt < 3 ? 8 * kt + q : i24;
@@ -266,11 +348,23 @@ __device__ __forceinline__ uint32_t check_pass(const uint8_t* rows, int bd0,
                                : tiles_worst<1>(a, B, q, r3));
 #pragma unroll
     for (int cw = 0; cw < 2; ++cw) {
-      uint8_t* out = stream + 9 * (blk[cw] * k + q) + bd;
+      if constexpr (kP5) {
+        const int s0 = 9 * (blk[cw] * k + q) + bd;
+        auto put = [&](int s, uint32_t x) {
+          if (s < v.stream_len) stream[snake(v, s)] = (uint8_t)x;
+        };
 #pragma unroll
-      for (int kt = 0; kt < 3; ++kt) {                   // c < k, 16 <= k <= 24
-        if (kt < 2 || 16 + q < k) out[9 * 8 * kt] = (uint8_t)a[kt][cw];
-        if (kt < 2 || 20 + q < k) out[9 * (8 * kt + 4)] = (uint8_t)a[kt][2 + cw];
+        for (int kt = 0; kt < 3; ++kt) {                 // c < k, 16 <= k <= 24
+          if (kt < 2 || 16 + q < k) put(s0 + 9 * 8 * kt, a[kt][cw]);
+          if (kt < 2 || 20 + q < k) put(s0 + 9 * (8 * kt + 4), a[kt][2 + cw]);
+        }
+      } else {
+        uint8_t* out = stream + 9 * (blk[cw] * k + q) + bd;
+#pragma unroll
+        for (int kt = 0; kt < 3; ++kt) {                 // c < k, 16 <= k <= 24
+          if (kt < 2 || 16 + q < k) out[9 * 8 * kt] = (uint8_t)a[kt][cw];
+          if (kt < 2 || 20 + q < k) out[9 * (8 * kt + 4)] = (uint8_t)a[kt][2 + cw];
+        }
       }
     }
   }
@@ -323,18 +417,26 @@ __device__ __forceinline__ void gather_pass(const uint8_t* stream, int n_out,
 }
 
 // kStaged: the body and the stream buffer in shared memory; else both in
-// global memory (the body read in place, the stream in a scratch tensor).
-template <bool kStaged>
+// global memory (the body read in place, the stream and the beacon strip
+// in a scratch tensor).  kBeacon, kP5: the grid route's layouts (the note
+// at the head of the file).
+template <bool kStaged, bool kBeacon, bool kP5>
 __global__ void __launch_bounds__(THREADS, 1) check_decode_kernel(const Args a) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint32_t* lut = reinterpret_cast<uint32_t*>(smem);
   int* band_k = reinterpret_cast<int*>(smem + SM_BAND);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + SM_BAR);
   int* s_bad = reinterpret_cast<int*>(smem + SM_FLAG);
-  uint8_t* stream = kStaged ? smem + SM_STREAM
-                            : a.scratch + (size_t)blockIdx.x * a.stream_bytes;
+  uint8_t* stream =
+      kStaged ? smem + SM_STREAM
+              : a.scratch + (size_t)blockIdx.x *
+                                (kBeacon ? a.stream_bytes + a.strip_bytes : a.stream_bytes);
   uint8_t* region[2] = {smem + SM_STREAM + a.stream_bytes,
                         smem + SM_STREAM + a.stream_bytes + a.part_bytes[0]};
+  uint8_t* fix = smem + (kStaged ? SM_STREAM + a.stream_bytes + a.part_bytes[0] +
+                                       a.part_bytes[1]
+                                 : SM_STREAM);
+  uint8_t* strip = kStaged ? fix + FIX_BYTES : stream + a.stream_bytes;
   const int tid = threadIdx.x, lane = tid & 31;
 
   const long long G = gridDim.x, first = blockIdx.x;
@@ -350,6 +452,10 @@ __global__ void __launch_bounds__(THREADS, 1) check_decode_kernel(const Args a) 
   }
   for (int e = tid; e < LUT_WORDS; e += THREADS) lut[e] = a.consts[e];
   if (tid < BANDS) band_k[tid] = (int)a.consts[BAND_OFF + tid];
+  if constexpr (kBeacon) {
+    for (int e = tid; e < FIX_BYTES / 4; e += THREADS)
+      reinterpret_cast<uint32_t*>(fix)[e] = a.consts[FIX_OFF + e];
+  }
   uint32_t B[3][4][2];
   {
     const uint2* bf = reinterpret_cast<const uint2*>(a.consts + BFRAG_OFF) + lane * 12;
@@ -381,8 +487,17 @@ __global__ void __launch_bounds__(THREADS, 1) check_decode_kernel(const Args a) 
                   : reinterpret_cast<const uint8_t*>(a.body + s * a.sf_stride) +
                         h * SPLIT * a.row_stride;
       __syncthreads();   // part landed; the last gather done with the stream
-      worst = max(worst, check_pass(rows, h ? SPLIT : 0, h ? BANDS : SPLIT,
-                                    a.row_stride, a.nblk, lut, band_k, B, stream));
+      const int bd0 = h ? SPLIT : 0, bd1 = h ? BANDS : SPLIT;
+      if constexpr (kBeacon) {
+        const int bb = a.grid.beacon_band;
+        if (bb >= bd0 && bb < bd1) {                     // block-uniform
+          beacon_strip(rows + (bb - bd0) * a.row_stride, strip, a.grid, fix);
+          __syncthreads();
+        }
+      }
+      worst = max(worst, check_pass<kBeacon, kP5>(rows, bd0, bd1, a.row_stride,
+                                                  a.nblk, lut, band_k, B, stream,
+                                                  a.grid, strip));
       if (h == 1 && __any_sync(0xffffffffu, worst > 0x55555555u) && lane == 0)
         *s_bad = 1;
       __syncthreads();   // the part's rows are read: its region is free
@@ -405,21 +520,50 @@ __global__ void __launch_bounds__(THREADS, 1) check_decode_kernel(const Args a) 
 }
 
 struct Plan {
-  int staged, max_grid, smem, blocks_per_sm, stream_bytes;
+  int staged, max_grid, smem, blocks_per_sm, stream_bytes, strip_bytes;
   int part_bytes[2];
 };
+
+// The kernel of one specialisation: index 4 * staged + 2 * beacon + p5.
+using Kernel = void (*)(const Args);
+const Kernel KERNELS[8] = {
+    check_decode_kernel<false, false, false>, check_decode_kernel<false, false, true>,
+    check_decode_kernel<false, true, false>,  check_decode_kernel<false, true, true>,
+    check_decode_kernel<true, false, false>,  check_decode_kernel<true, false, true>,
+    check_decode_kernel<true, true, false>,   check_decode_kernel<true, true, true>};
 
 // Per device, queried once: SM count, shared-memory limit, and for each
 // kernel the dynamic shared size last set and the blocks per SM it allows.
 struct DeviceInfo {
-  int nsm = 0, optin = 0, smem[2] = {-1, -1}, blocks_per_sm[2] = {0, 0};
+  int nsm = 0, optin = 0, smem[8] = {-1, -1, -1, -1, -1, -1, -1, -1},
+      blocks_per_sm[8] = {};
 };
 constexpr int MAX_DEVICES = 64;
 DeviceInfo g_devices[MAX_DEVICES];
 
-// The body and the stream buffer are staged in shared memory when they
-// fit there, else both stay in global memory.
-int make_plan(long long row_stride, int nblk, int kmax, Plan* plan) {
+// The grid route's layout from the wrapper's words (null: the P2 route).
+Grid grid_of(const unsigned* w) {
+  Grid v = {-1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  if (w) {
+    v.beacon_band = (int)w[0];
+    v.beacon_blocks = (int)w[1];
+    v.beacon_magic = w[2];
+    v.stream_len = (int)w[3];
+    v.tile_area = (int)w[4];
+    v.area_magic = w[5];
+    v.tile_w = (int)w[6];
+    v.w_magic = w[7];
+    v.last_tile = (int)w[8];
+    v.last_rows = (int)w[9];
+    v.last_rem = (int)w[10];
+  }
+  return v;
+}
+
+// The body, the stream buffer (and a beacon strip) are staged in shared
+// memory when they fit there, else they stay in global memory.
+int make_plan(long long row_stride, int nblk, int kmax, const Grid& v,
+              Plan* plan, int* kernel) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -430,33 +574,40 @@ int make_plan(long long row_stride, int nblk, int kmax, Plan* plan) {
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&d.nsm, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)(d.nsm = 0, e);
   }
+  const bool beacon = v.beacon_band >= 0, p5 = v.stream_len > 0;
   const long long H = (long long)N * nblk;
   const long long span = 8 * row_stride + H;
   const long long stream = ((long long)BANDS * nblk * kmax + 127) / 128 * 128;
-  if (span >= (1LL << 30) || stream >= (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const long long strip = beacon ? ((long long)N * v.beacon_blocks + 127) / 128 * 128 : 0;
+  if (span >= (1LL << 30) || stream >= (1LL << 30) || strip >= (1LL << 30))
+    return (int)cudaErrorInvalidValue;
   long long parts = 0;
   for (int h = 0; h < 2; ++h) {
     const long long rows = h ? BANDS - SPLIT : SPLIT;
     plan->part_bytes[h] = (int)(((rows - 1) * row_stride + H + 32 + 127) / 128 * 128);
     parts += plan->part_bytes[h];
   }
-  const int staged = SM_STREAM + stream + parts <= d.optin;
+  const long long fix = beacon ? FIX_BYTES : 0;
+  const int staged = SM_STREAM + stream + parts + fix + strip <= d.optin;
   plan->staged = staged;
   plan->stream_bytes = (int)stream;
-  plan->smem = staged ? (int)(SM_STREAM + stream + parts) : SM_STREAM;
-  if (d.smem[staged] != plan->smem) {
-    const auto kernel = staged ? check_decode_kernel<true> : check_decode_kernel<false>;
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  plan->strip_bytes = (int)strip;
+  plan->smem = staged ? (int)(SM_STREAM + stream + parts + fix + strip)
+                      : (int)(SM_STREAM + fix);
+  const int kv = 4 * staged + 2 * beacon + p5;
+  if (d.smem[kv] != plan->smem) {
+    e = cudaFuncSetAttribute(KERNELS[kv], cudaFuncAttributeMaxDynamicSharedMemorySize,
                              plan->smem);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.blocks_per_sm[staged],
-                                                        kernel, THREADS, plan->smem);
-    if (e != cudaSuccess) return (int)(d.smem[staged] = -1, e);
-    d.smem[staged] = plan->smem;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.blocks_per_sm[kv],
+                                                        KERNELS[kv], THREADS, plan->smem);
+    if (e != cudaSuccess) return (int)(d.smem[kv] = -1, e);
+    d.smem[kv] = plan->smem;
   }
-  plan->blocks_per_sm = d.blocks_per_sm[staged];
+  plan->blocks_per_sm = d.blocks_per_sm[kv];
   if (plan->blocks_per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   plan->max_grid = d.nsm * plan->blocks_per_sm;
+  *kernel = kv;
   return 0;
 }
 
@@ -466,36 +617,42 @@ int make_plan(long long row_stride, int nblk, int kmax, Plan* plan) {
 // plan[0..4] = staged (1: body and stream buffer in shared memory; 0: in
 // global memory), the largest grid (SMs x resident blocks per SM; a launch
 // of n_sf superframes takes min(n_sf, it)), dynamic shared bytes, resident
-// blocks per SM, and the stream buffer's bytes (an unstaged launch needs
-// one per block of its grid as scratch).  Returns a CUDA error code.
+// blocks per SM, and the scratch bytes a block of an unstaged launch needs
+// (its stream buffer and beacon strip).  grid: the grid route's 11 words
+// (struct Grid), or null for the P2 route.  Returns a CUDA error code.
 extern "C" int t3_check_decode_plan(long long row_stride, int nblk, int kmax,
-                                    int* plan) {
+                                    const unsigned* grid, int* plan) {
   Plan p;
-  const int err = make_plan(row_stride, nblk, kmax, &p);
+  int kv = 0;
+  const int err = make_plan(row_stride, nblk, kmax, grid_of(grid), &p, &kv);
   if (err) return err;
   plan[0] = p.staged;
   plan[1] = p.max_grid;
   plan[2] = p.smem;
   plan[3] = p.blocks_per_sm;
-  plan[4] = p.stream_bytes;
+  plan[4] = p.stream_bytes + (p.staged ? 0 : p.strip_bytes);
   return 0;
 }
 
 // body: n_sf superframes of 9 rows, element (s, b, h) at
-// body[s * sf_stride + b * row_stride + h]; out (n_sf, 9, n_out) int8
-// contiguous; ok (n_sf,) bool; consts the wrapper's uint32 table (layout
-// above) on the device; kmax the largest k; scratch min(n_sf, max grid) x
-// stream bytes of the plan when it is unstaged (else unused).
+// body[s * sf_stride + b * row_stride + h]; nblk the uniform bands' block
+// count (H = 26 * nblk); out (n_sf, 9, n_out) int8 contiguous; ok (n_sf,)
+// bool; consts the wrapper's uint32 table (layout above) on the device;
+// kmax the largest k; grid as for the plan (host memory); scratch
+// min(n_sf, max grid) x the plan's scratch bytes a block when it is
+// unstaged (else unused).
 extern "C" int t3_check_decode(const void* body, long long sf_stride,
                                long long row_stride, long long n_sf, int nblk,
                                int kmax, int n_out, const void* consts,
-                               void* out, void* ok, void* scratch,
-                               void* stream) {
+                               const unsigned* grid, void* out, void* ok,
+                               void* scratch, void* stream) {
   if (n_sf <= 0) return 0;
   Plan p;
-  const int err = make_plan(row_stride, nblk, kmax, &p);
+  int kv = 0;
+  const Grid v = grid_of(grid);
+  const int err = make_plan(row_stride, nblk, kmax, v, &p, &kv);
   if (err) return err;
-  const int grid = (int)(n_sf < p.max_grid ? n_sf : p.max_grid);
+  const int launch_grid = (int)(n_sf < p.max_grid ? n_sf : p.max_grid);
   Args a;
   a.body = (const int8_t*)body;
   a.sf_stride = sf_stride;
@@ -516,9 +673,8 @@ extern "C" int t3_check_decode(const void* body, long long sf_stride,
   a.out = (int8_t*)out;
   a.ok = (bool*)ok;
   a.scratch = (uint8_t*)scratch;
-  if (p.staged)
-    check_decode_kernel<true><<<grid, THREADS, p.smem, (cudaStream_t)stream>>>(a);
-  else
-    check_decode_kernel<false><<<grid, THREADS, p.smem, (cudaStream_t)stream>>>(a);
+  a.grid = v;
+  a.strip_bytes = p.strip_bytes;
+  KERNELS[kv]<<<launch_grid, THREADS, p.smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,7 @@ kept off the hot byte path:
                  CRC32 + sequential container write
   decode serve:  indexed, approve-gated frame read + CRC32 check -> ONE
                  H2D per frame -> [device] unpack + check decode (K1,
-                 or the grid check of a beacon or P5 layout)
+                 its beacon and P5 specialisations on those layouts)
 
 Both directions run through runtime/executor.StreamExecutor, so host IO
 of frame i+1 overlaps device work on frame i.
@@ -206,8 +206,9 @@ def serve_codec_fns(cfg, n_raw: int, sf_batch: int = 128, device=None):
                packed wire bytes, checksum of the wire planes)
     dec_serve: (n_sf, >= sf_bytes) uint8 -> (ok, wire checksum, out
                checksum): unpack, check decode (on the card K1, one
-               launch for the frame, where it covers the layout, else
-               the plain grid check; and the header byte compare) and the
+               launch for the frame, where one of its specialisations
+               covers the layout, else the plain grid check; and the
+               header byte compare) and the
                exactness checksums; the decoded planes stay on the device,
                the checksum pins them
     Checksums are 0-d int32 tensors, ok a 0-d bool tensor, all on the

@@ -46,8 +46,10 @@ Decode strategies of ``decode_stream_superframes``:
 
 The check decode takes one of two routes, fixed by the layout
 (``check_route``): K1 where the kernel covers the layout (no beacon, no
-P5, one block count, whole codewords; any UEP grouping), else the plain
-torch grid check, as the reference checks such layouts outside Pallas.
+P5, one block count, whole codewords; any UEP grouping), else the grid
+route, as the reference checks such layouts outside Pallas: on the card
+K1's beacon and P5 specialisations where ``dec_cuda.covers`` the layout,
+the plain torch grid check (``grid_check``) otherwise and on the CPU.
 The beacon band is checked and repaired on its own chain (K2 on the card):
 check reads its syndromes, paged repairs at most 4 of its 16-block pages a
 superframe, full corrects every codeword.
@@ -625,8 +627,9 @@ def beacon_paged(blocks: torch.Tensor, k: int, T: dict):
 def check_route(dlayout: DecodeLayout) -> str:
     """How the check decode runs for this layout: "k1" where the K1 kernel
     covers it (``dec_cuda.supported``: no beacon, no P5, one block count,
-    whole codewords), else "grid", the plain torch grid check (the
-    counterpart of the reference's XLA check)."""
+    whole codewords), else "grid", the counterpart of the reference's XLA
+    check: ``grid_check``, or on the card K1's beacon and P5
+    specialisations where ``dec_cuda.covers`` the layout."""
     return "k1" if dec_cuda.supported(dlayout) else "grid"
 
 
@@ -644,13 +647,22 @@ def grid_check(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
     return assemble_words(grid, T), ~bad
 
 
+def _runs_k1(body: torch.Tensor, dlayout: DecodeLayout) -> bool:
+    """True when ``check_body`` runs K1 (or on the CPU its plain twin)
+    rather than ``grid_check``: the K1 route, or a CUDA tensor of a grid
+    route layout that ``dec_cuda.covers``."""
+    return check_route(dlayout) == "k1" or (body.device.type == "cuda"
+                                            and dec_cuda.covers(dlayout))
+
+
 def check_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
     """Check decode: (n, 9, H) -> (RAW planes (n, 9, n_out), ok (n,)).
     On the K1 route a CUDA tensor runs the kernel and a CPU tensor its
-    plain twin; on the grid route both run ``grid_check``."""
+    plain twin; on the grid route a CUDA tensor runs the kernel where
+    ``dec_cuda.covers`` the layout, else ``grid_check`` runs."""
     grid = check_route(dlayout) == "grid"
     with tracing.span("t3.check.grid" if grid else "t3.check.k1"):
-        if grid:
+        if not _runs_k1(body, dlayout):
             return grid_check(body, dlayout, T)
         if body.device.type == "cuda":
             return dec_cuda.check_decode(body, dlayout)
@@ -727,7 +739,7 @@ def none_body(body: torch.Tensor, dlayout: DecodeLayout, T: dict):
     """No RS on the body (the reference's rs_mode="none"): the data as
     ``check_body`` extracts it, ok True.  (n, 9, H) -> (RAW planes
     (n, 9, n_out), ok (n,))."""
-    if check_route(dlayout) == "k1":
+    if _runs_k1(body, dlayout):
         out, _flags = check_body(body, dlayout, T)
     else:
         out = assemble_words(decode_grid(body, T), T)

@@ -12,8 +12,12 @@
   the word-major gather from that buffer), built from the exact array
   ``dec_cuda`` uploads, is held
   against the twin on encoded and on random bodies, strided and
-  contiguous.  The kernel itself is held against the twin on the card by
-  ``chip_smoke.py``.
+  contiguous.  On the grid route's layouts (beacon and/or P5) the model
+  adds the beacon band's strip (its payload rows, the fix table's
+  re-scramble, its own block count) and P5's snake store, from the
+  launch arguments ``dec_cuda.grid_args`` gives, and is held against
+  ``pipeline.grid_check``.  The kernel itself is held against the twin on
+  the card by ``chip_smoke.py``.
 
 Tolerance: zero, ok flags included.
 """
@@ -28,7 +32,7 @@ from ternary_image_codec_tpu.ops import dec_pallas
 from ternary_image_codec_tpu.ops import pipeline as jpipe
 from ternary_image_codec_tpu_torch import config as tconfig
 from ternary_image_codec_tpu_torch import SuperframeCodec
-from ternary_image_codec_tpu_torch.ops import dec_cuda
+from ternary_image_codec_tpu_torch.ops import dec_cuda, interleave, pipeline
 
 N_SF = 6
 HIT = [1, 4]
@@ -124,11 +128,16 @@ def test_codec_never_falls_back_to_cpu():
 
 def _split_consts(consts):
     """The uploaded uint32 table -> (lut (2, 9, 256), bfrag (32, 3, 4, 2),
-    k (9,)), by the offsets the kernel uses."""
-    assert consts.dtype == np.uint32 and consts.shape == (dec_cuda.CONST_WORDS,)
+    k (9,), the beacon fix table (2, 256) or None), by the offsets the
+    kernel uses."""
+    assert consts.dtype == np.uint32 and consts.shape in (
+        (dec_cuda.CONST_WORDS,), (dec_cuda.CONST_WORDS + dec_cuda.FIX_WORDS,))
     lut = consts[:dec_cuda.LUT_WORDS].reshape(2, 9, 256)
     bfrag = consts[dec_cuda.BFRAG_OFF:dec_cuda.BAND_OFF].reshape(32, 3, 4, 2)
-    return lut, bfrag, consts[dec_cuda.BAND_OFF:].astype(np.int64)
+    fix = consts[dec_cuda.FIX_OFF:].view(np.uint8).reshape(2, 256) \
+        if consts.size > dec_cuda.CONST_WORDS else None
+    return (lut, bfrag, consts[dec_cuda.BAND_OFF:dec_cuda.FIX_OFF]
+            .astype(np.int64), fix)
 
 
 def _bytes(word):
@@ -177,25 +186,68 @@ def _stage(buf, base, sf_stride, row_stride, n_sf, H, s, h):
                      for j in range(nrow)])
 
 
-def _model_check(rows, nblk, lut, M, ks, stream):
+def _mdiv(n, m):
+    """The kernel's ``magic_div``: umulhi(2n, m)."""
+    return (np.uint64(2) * np.asarray(n, dtype=np.uint64) * np.uint64(m)) \
+        >> np.uint64(32)
+
+
+def _snake(grid, s):
+    """The kernel's ``snake``: the stream position of band-stream index s
+    (an array) under P5, from the launch arguments ``grid``."""
+    g = [int(x) for x in grid]
+    s = np.asarray(s, dtype=np.int64)
+    t = _mdiv(s, g[5]).astype(np.int64) * g[4]
+    u = s - t
+    r = _mdiv(u, g[7]).astype(np.int64)
+    c = u - r * g[6]
+    w = np.where((t == g[8]) & (r == g[9]), g[10], g[6])
+    return np.where(r & 1, s + w - 1 - 2 * c, s)
+
+
+def _beacon_rows(grid):
+    """The kernel's ``beacon_strip`` rows: strip cell h reads body row
+    h + (h / (p - 1)) + 1 of the beacon band."""
+    h = np.arange(26 * int(grid[1]), dtype=np.int64)
+    return h, h + _mdiv(h, int(grid[2])).astype(np.int64) + 1
+
+
+def _model_strip(row, grid, fix):
+    """The beacon band's strip from its staged row: the byte of each
+    codeword cell, re-scrambled by ``fix`` where its row's parity differs
+    from the cell's."""
+    h, r = _beacon_rows(grid)
+    x = row[r]
+    return np.where((r ^ h) & 1, fix[h & 1, x], x).astype(np.uint8)
+
+
+def _model_check(rows, nblk, lut, M, ks, stream, grid=None, strip=None):
     """The check pass: steps of 16 codewords of one band; lane (g, q) loads
     the lookup words of blocks 16p + 2g and 16p + 2g + 1 (a block past the
     band's last reads the last), symbols 8kt + q and 8kt + 4 + q (slot
     (3, 0) reads symbol min(24 + q, 25), slot (3, 1) is zero); the
     products over the n-tiles below 3r; columns 8nt + 2q, + 1 below 3r
     tested for divisibility by 3; data symbols (byte 0) stored into the
-    stream buffer at 9 * (blk * k + c) + band."""
+    stream buffer at 9 * (blk * k + c) + band.  On the grid route
+    (``grid``, the launch arguments): the beacon band reads ``strip`` with
+    its own block count, and under P5 a symbol goes to ``_snake`` of its
+    index when the index is below L_out (``dest``, precomputed)."""
+    bb = int(np.int32(grid[0])) if grid is not None else -1
+    L = int(grid[3]) if grid is not None else 0
+    dest = _snake(grid, np.arange(L)) if L else None
     bad = False
     for bd in range(9):
         k = int(ks[bd])
         r3 = 3 * (26 - k)
-        for p in range(-(-nblk // 16)):
+        nb = int(grid[1]) if bd == bb else nblk
+        for p in range(-(-nb // 16)):
             A = np.zeros((16, 128), dtype=np.int64)
             for lane in range(32):
                 g, q = lane // 4, lane % 4
                 for cw in range(2):
-                    blk = min(16 * p + 2 * g + cw, nblk - 1)
-                    row = rows[bd, blk * 26:blk * 26 + 26]
+                    blk = min(16 * p + 2 * g + cw, nb - 1)
+                    row = (strip if bd == bb else rows[bd])[
+                        blk * 26:blk * 26 + 26]
                     for kt in range(4):
                         for hh in range(2):
                             if (kt, hh) == (3, 1):
@@ -204,8 +256,11 @@ def _model_check(rows, nblk, lut, M, ks, stream):
                             word = int(lut[q & 1, bd, row[min(i, 25)]])
                             col = 32 * kt + 16 * hh + 4 * q
                             A[8 * cw + g, col:col + 4] = _bytes(word)
-                            if i < k:
-                                stream[9 * (blk * k + i) + bd] = word & 255
+                            s = 9 * (blk * k + i) + bd
+                            if i < k and not L:
+                                stream[s] = word & 255
+                            elif i < k and s < L:
+                                stream[dest[s]] = word & 255
             C = A @ M.T                                 # (16, 24) int32 sums
             for lane in range(32):
                 g, q = lane // 4, lane % 4
@@ -240,10 +295,14 @@ def _model_gather(stream, n_out):
 
 
 def _model(buf, base, sf_stride, row_stride, n_sf, layout):
-    lut, bfrag, ks = _split_consts(dec_cuda.host_consts(layout))
+    lut, bfrag, ks, fix = _split_consts(dec_cuda.host_consts(layout))
     M = _m_from_fragments(bfrag)
     assert np.array_equal(M, dec_cuda.syndrome_matrix())
-    nblk, H, n_out = layout.geom.blocks[0], layout.geom.H, layout.n_out_words
+    grid = None if dec_cuda.supported(layout) else dec_cuda.grid_args(layout)
+    bb = int(np.int32(grid[0])) if grid is not None else -1
+    assert (fix is not None) == (bb >= 0)
+    H, n_out = layout.geom.H, layout.n_out_words
+    nblk = H // 26
     # the kernel's stream buffer: 9 * nblk * max(k), rounded up to 128;
     # unwritten bytes are 0xA5, which no symbol is
     stream = np.full(-(-9 * nblk * int(ks.max()) // 128) * 128, 0xA5,
@@ -252,8 +311,10 @@ def _model(buf, base, sf_stride, row_stride, n_sf, layout):
     for s in range(n_sf):
         rows = np.concatenate([_stage(buf, base, sf_stride, row_stride, n_sf,
                                       H, s, h) for h in (0, 1)])
+        strip = _model_strip(rows[bb], grid, fix) if bb >= 0 else None
         stream[:] = 0xA5
-        oks.append(not _model_check(rows, nblk, lut, M, ks, stream))
+        oks.append(not _model_check(rows, nblk, lut, M, ks, stream, grid,
+                                    strip))
         outs.append(_model_gather(stream, n_out))
     return np.stack(outs), np.array(oks)
 
@@ -320,6 +381,198 @@ def test_descramble_lut_floor_digits():
                           + 9 * grid[..., 2])
 
 
+# ---------------------------------------------------------------------------
+# the grid route: the kernel's beacon and P5 specialisations
+# ---------------------------------------------------------------------------
+
+
+def _grid_cfg(profile, sfw, uep, seed, tile=None, beacon=None):
+    """A port config of the grid route (tile (w, h), beacon (period, band))."""
+    kw = {}
+    if tile is not None:
+        kw["tile"] = tconfig.Tile2D(*tile)
+    if beacon is not None:
+        kw["beacon"] = tconfig.SparseBeaconCfg(*beacon, True)
+    return tconfig.EncoderConfig(
+        profile=tconfig.ProfileID[profile], uep=getattr(tconfig, uep[0])(*uep[1:]),
+        superframe_words=sfw, seed=tconfig.ScramblerSeed(*seed), **kw)
+
+
+LUMA, NONRESIDUE = ("uep_luma_priority",), ("UEPLayout", (0, 1, 2, 2, 1, 0, 1, 1, 2))
+# (profile, words, uep, seed, tile, beacon): the flagship's P5 26x26 and
+# beacon 13 in band 4 (at 512 words a partial last tile of 17 rows, odd;
+# at 1,024 a beacon band of 46 blocks beside 50, one 16-block step fewer);
+# P5 8x4 (partial last tile of 3 rows, odd, and 4 symbols); P2 + beacon;
+# a beacon in band 0 (the first part) with P5 6x5 and non-residue UEP; a
+# period of 2 (p - 1 = 1) in band 8, 9 blocks beside 18.  Seeds with a
+# period-3 scramble pattern (a = 1, as the flagship's) descramble both
+# column parities alike; the others, with a = 2, need the fix table.
+GRID_CASES = [
+    ("P5_RS26_22_2D", 512, LUMA, (1, 1, 1), (26, 26), (13, 4)),
+    ("P5_RS26_22_2D", 1024, LUMA, (2, 1, 0), (26, 26), (13, 4)),
+    ("P5_RS26_22_2D", 208, LUMA, (0, 2, 1), (8, 4), None),
+    ("P2_RS26_22", 256, LUMA, (2, 0, 1), None, (13, 4)),
+    ("P5_RS26_22_2D", 170, NONRESIDUE, (2, 2, 0), (6, 5), (7, 0)),
+    ("P2_RS26_22", 184, LUMA, (2, 1, 1), None, (2, 8)),
+]
+GRID_IDS = ["p5_26x26_b13", "p5_26x26_b13_1024", "p5_8x4", "p2_b13",
+            "p5_6x5_b7_band0", "p2_b2_band8"]
+FLAGSHIP = ("P5_RS26_22_2D", 8192, LUMA, (1, 1, 1), (26, 26), (13, 4))
+
+
+def _cell(layout, band, j):
+    """Body row of data column j of ``band`` (the beacon band's run down
+    its payload rows)."""
+    return int(pipeline._data_rows(layout.geom, layout.hdr.beacon,
+                                   np.asarray(band), np.asarray(j)))
+
+
+def _grid_damage(words, layout):
+    """Damage in place, wire planes (N_SF, 9, 6 + H): superframe 1 in a
+    uniform band; 2 in the beacon band's payload; 3 only in beacon cells
+    (must not flag); 4 at a band-stream symbol of the last, partial P5
+    tile on one of its reversed rows.  Returns the superframes that must
+    flag."""
+    hdr, geom = layout.hdr, layout.geom
+    bump = lambda sf, b, row, e: words.__setitem__(
+        (sf, b, 6 + row), (words[sf, b, 6 + row] + e) % 27)
+    flagged = []
+    b0 = hdr.beacon.band_slot if hdr.beacon.enabled else -1
+    u = (b0 + 1) % 9
+    bump(1, u, _cell(layout, u, 5), 4)
+    flagged.append(1)
+    if b0 >= 0:
+        bump(2, b0, _cell(layout, b0, geom.ks[b0] + 2), 7)
+        flagged.append(2)
+        for r in (0, hdr.beacon.words_period, 3 * hdr.beacon.words_period):
+            bump(3, b0, r, 5)
+    if dec_cuda._is_p5(hdr):
+        g = [int(x) for x in dec_cuda.grid_args(layout)]
+        assert g[3] > g[8], "no partial tile"
+        rows = g[9] if g[9] % 2 else g[9] - 1
+        i = g[8] + rows * g[6] + (0 if rows < g[9] else g[10] - 1)
+        bump(4, i % 9, _cell(layout, i % 9, i // 9), 11)
+        flagged.append(4)
+    return flagged
+
+
+def _grid_words(cfg, body_kind, rng):
+    codec = SuperframeCodec(cfg, device=CPU)
+    layout = codec.dlayout
+    if body_kind == "encoded":
+        chunks = rng.integers(0, 27, size=(N_SF, cfg.superframe_words, 9),
+                              dtype=np.int8)
+        words = codec.encode(torch.as_tensor(chunks)).numpy()
+        flagged = _grid_damage(words, layout)
+    else:
+        words = rng.integers(-128, 128, size=(N_SF, 9, 6 + layout.H),
+                             dtype=np.int8)
+        words.reshape(-1)[:256] = np.arange(-128, 128, dtype=np.int8)
+        flagged = None
+    return codec, np.ascontiguousarray(words), flagged
+
+
+@pytest.mark.parametrize("body_kind", ["encoded", "random"])
+@pytest.mark.parametrize("profile,sfw,uep,seed,tile,beacon", GRID_CASES,
+                         ids=GRID_IDS)
+def test_grid_kernel_model_matches_grid_check(profile, sfw, uep, seed, tile,
+                                              beacon, body_kind):
+    """The kernel's model on the grid route's layouts against the plain grid
+    check, bit for bit with the ok flags; beacon cells never flag."""
+    cfg = _grid_cfg(profile, sfw, uep, seed, tile, beacon)
+    codec, words, flagged = _grid_words(cfg, body_kind,
+                                        np.random.default_rng(sfw + seed[0]))
+    layout = codec.dlayout
+    assert pipeline.check_route(layout) == "grid" and dec_cuda.covers(layout)
+    H = layout.H
+    want, want_ok = pipeline.grid_check(torch.as_tensor(words[:, :, 6:]),
+                                        layout, codec.tables())
+    if flagged is not None:
+        assert np.flatnonzero(~want_ok.numpy()).tolist() == flagged
+    got, got_ok = _model(words.view(np.uint8).reshape(-1), 6, 9 * (6 + H),
+                         6 + H, N_SF, layout)
+    assert np.array_equal(got, want.numpy()) and np.array_equal(got_ok, want_ok.numpy())
+    body = np.ascontiguousarray(words[:, :, 6:])
+    buf = np.zeros(body.size + 64, dtype=np.uint8)
+    buf[21:21 + body.size] = body.view(np.uint8).reshape(-1)
+    got, got_ok = _model(buf, 21, 9 * H, H, N_SF, layout)
+    assert np.array_equal(got, want.numpy()) and np.array_equal(got_ok, want_ok.numpy())
+
+
+@pytest.mark.parametrize("profile,sfw,uep,seed,tile,beacon",
+                         GRID_CASES + [FLAGSHIP], ids=GRID_IDS + ["flagship_8k"])
+def test_grid_args_arithmetic(profile, sfw, uep, seed, tile, beacon):
+    """The launch arguments' arithmetic over every index the kernel maps:
+    the snake store is ``interleave.perm`` (an involution) on every s <
+    L_out, the beacon strip reads ``decode_tables``' payload rows, and the
+    fix table re-scrambles every byte to the other column parity."""
+    cfg = _grid_cfg(profile, sfw, uep, seed, tile, beacon)
+    layout = pipeline.stream_layouts(cfg)[1]
+    g = dec_cuda.grid_args(layout)
+    assert g.dtype == np.uint32 and g.shape == (11,)
+    hdr = layout.hdr
+    if tile is not None:
+        L = layout.L_out
+        assert int(g[3]) == L
+        p = interleave.perm(L, *tile)
+        assert np.array_equal(_snake(g, np.arange(L)), p)
+        assert np.array_equal(p[p], np.arange(L))
+    else:
+        assert int(g[3]) == 0
+    if beacon is not None:
+        b0 = hdr.beacon.band_slot
+        assert int(np.int32(g[0])) == b0 and int(g[1]) == layout.geom.blocks[b0]
+        pay = pipeline._beacon_payload_rows(layout.geom.usable[b0],
+                                            beacon[0])[:26 * int(g[1])]
+        assert np.array_equal(_beacon_rows(g)[1], pay)
+        assert not np.any(pay % beacon[0] == 0) and pay.max() < layout.H
+        lut = dec_cuda.descramble_lut(hdr.seed)[:, b0] & 255
+        fix = _split_consts(dec_cuda.host_consts(layout))[3]
+        x = np.arange(256)
+        for par in range(2):
+            assert np.array_equal(lut[par, fix[par, x]], lut[1 - par, x])
+    else:
+        assert int(np.int32(g[0])) == -1
+    if (profile, sfw, tile, beacon) == FLAGSHIP[:2] + FLAGSHIP[4:]:
+        # p5_8k_beacon: 2,025 superframes of H = 10,270 = 26 x 395, the
+        # beacon band 364 blocks, L_out 71,100 = 105 tiles + 120 symbols
+        assert layout.H == 10270 and dec_cuda.covers(layout)
+        assert [int(v) for v in g] == [
+            4, 364, dec_cuda.magic(12), 71100, 676, dec_cuda.magic(676), 26,
+            dec_cuda.magic(26), 105 * 676, 4, 16]
+
+
+def test_grid_route_gate():
+    """Which layouts launch K1's grid-route specialisations on the card,
+    which keep the plain grid check, and that a CPU tensor of a covered
+    layout runs the plain grid check."""
+    def dl(*a):
+        return pipeline.stream_layouts(_grid_cfg(*a))[1]
+    for case in GRID_CASES + [FLAGSHIP]:
+        layout = dl(*case)
+        assert pipeline.check_route(layout) == "grid"
+        assert dec_cuda.covers(layout) and not dec_cuda.supported(layout)
+    # P2 without a beacon is K1's own route, not the grid route's
+    p2 = dl("P2_RS26_22", 256, LUMA, (1, 1, 1))
+    assert dec_cuda.supported(p2) and not dec_cuda.covers(p2)
+    assert pipeline.check_route(p2) == "k1"
+    # a beacon whose height is no multiple of 26: the plain grid check
+    odd = dl("P2_RS26_22", 207, LUMA, (1, 1, 1), None, (13, 4))
+    assert odd.H % 26 and pipeline.check_route(odd) == "grid"
+    assert not dec_cuda.covers(odd)
+    # a CPU tensor of a covered layout never reaches the kernel's wrapper
+    cfg = _grid_cfg(*GRID_CASES[0])
+    codec = SuperframeCodec(cfg, device=CPU)
+    words = codec.encode(torch.zeros((2, cfg.superframe_words, 9),
+                                     dtype=torch.int8))
+    body = words[:, :, 6:]
+    with pytest.raises(ValueError, match="CUDA"):
+        dec_cuda.check_decode(body, codec.dlayout)
+    out, ok = pipeline.check_body(body, codec.dlayout, codec.tables())
+    want, want_ok = pipeline.grid_check(body, codec.dlayout, codec.tables())
+    assert torch.equal(out, want) and torch.equal(ok, want_ok) and bool(ok.all())
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -348,3 +601,25 @@ def test_kernel_matches_twin(profile, sfw, staged, cuda_device):
         got, got_ok = dec_cuda.check_decode(b, codec.dlayout)
         assert torch.equal(got, want) and torch.equal(got_ok, want_ok)
     assert not bool(got_ok[HIT[0]]) and int(got_ok.sum()) == 39
+
+
+GRID_KERNEL_CASES = GRID_CASES + [FLAGSHIP]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile,sfw,uep,seed,tile,beacon", GRID_KERNEL_CASES,
+                         ids=GRID_IDS + ["flagship_8k"])
+def test_grid_kernel_matches_grid_check(profile, sfw, uep, seed, tile, beacon,
+                                        cuda_device):
+    cfg = _grid_cfg(profile, sfw, uep, seed, tile, beacon)
+    codec = SuperframeCodec(cfg, device=cuda_device)
+    words = codec.encode(torch.as_tensor(np.random.default_rng(0).integers(
+        0, 27, size=(N_SF, sfw, 9), dtype=np.int8)))
+    host = words.cpu().numpy()
+    flagged = _grid_damage(host, codec.dlayout)
+    body = torch.as_tensor(host, device=cuda_device)[:, :, 6:]
+    want, want_ok = pipeline.grid_check(body, codec.dlayout, codec.tables())
+    assert torch.flatten(torch.nonzero(~want_ok)).tolist() == flagged
+    for b in (body, body.contiguous()):
+        got, got_ok = dec_cuda.check_decode(b, codec.dlayout)
+        assert torch.equal(got, want) and torch.equal(got_ok, want_ok)

@@ -231,8 +231,7 @@ def test_cpu_when_asked_and_inputs_move():
 
 def test_beacon_codec_on_the_card():
     """A beacon layout decodes on the card by default: its paged decode
-    launches K2 and never K1 (the check of a beacon layout is the plain
-    grid check, as the reference checks it outside its Pallas kernel).
+    launches K2 and never K1 (the paged corrector runs no check decode).
     Without a card its codec raises as every entry point does."""
     cfg = dataclasses.replace(
         CFG, beacon=port.config.SparseBeaconCfg(13, 4, True))
